@@ -21,8 +21,8 @@ HWIO only at ``params_from_jax``.
 Numerics: ``compute_dtype`` plays the role of the reference ``apply``'s: the
 convs run in it (bf16 by default), the BN and ReLU in f32, and the activation
 is cast back to ``compute_dtype`` after every layer, the last one included.
-The reference's bf16 conv accumulates into an f32 output; a bf16 conv here
-returns bf16, one extra rounding (<= 2^-9 relative) before the BN.
+Each conv takes compute-dtype operands and returns f32, as the reference's
+does (``preferred_element_type=f32``), so nothing is rounded before the BN.
 """
 
 from __future__ import annotations
@@ -60,6 +60,28 @@ def input_norm(x):
     return (x - mean[:, None, None, None]) / std[:, None, None, None]
 
 
+def _conv_f32_out(x, w, stride, padding):
+    """conv2d of x and w (each already in the compute dtype) with an f32
+    result, as the reference's conv with ``preferred_element_type=f32``: the
+    operands are widened to f32 and the conv runs in f32, so the output is
+    never rounded to bf16.  On a CUDA device the conv runs with TF32 allowed
+    (the package turns it off globally): a bf16 value is exact in TF32 (10
+    mantissa bits to bf16's 7), so every product stays exact and the sums
+    stay f32, at the TF32 rate instead of cuDNN's far slower full-f32 path.
+    An f32 compute dtype keeps TF32 off."""
+    narrow = w.dtype in (torch.bfloat16, torch.float16)
+    x, w = x.to(torch.float32), w.to(torch.float32)
+    if not (x.is_cuda and narrow):
+        return F.conv2d(x, w, stride=stride, padding=padding)
+    # only this flag changes (cudnn.flags() would also reset the others)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        return F.conv2d(x, w, stride=stride, padding=padding)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
 class ASDNet(nn.Module):
     """Inference-only ASDNet.  Buffers: ``conv{i}`` OIHW weights,
     ``scale{i}``/``shift{i}`` the folded BN of layer i."""
@@ -85,7 +107,7 @@ class ASDNet(nn.Module):
             else:
                 padding = 0 if ks == 8 else 1
             w = getattr(self, f"conv{i}").to(compute_dtype)
-            x = F.conv2d(x, w, stride=stride, padding=padding).to(torch.float32)
+            x = _conv_f32_out(x, w, stride, padding)
             x = x * getattr(self, f"scale{i}")[:, None, None] + getattr(self, f"shift{i}")[:, None, None]
             if i < len(LAYERS) - 1:
                 x = torch.relu(x)

@@ -9,14 +9,24 @@ Phases, each of which raises on failure (exit code != 0):
    (one nvcc per source, started together) and print the card's name and
    power limit;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and on a tie/duplicate problem;
+   main path's shapes, on a tie/duplicate problem and on the contract's edge
+   cases (every row gated out, n = 1, m = 1, ragged m, no window, duplicates
+   across a tile and a cell boundary, non-finite positions, a large
+   20000x20000 problem); each check also
+   runs the kernel twice (bitwise-equal outputs) and shows, from the
+   kernel's own tile summaries, that no culled tile pair holds a gated-in
+   pair;
 3. drive the main path at full width: the fused tracking step
    (make_extractor + make_track_step) at the KITTI shape (1241x376, 2000
    features, 8 levels, an 8192-row candidate block) over chained frames of
    the synthetic corridor, with launch counts reset just before and read
-   just after; one frame is re-run with the plain matcher and compared;
-4. time the step and each kernel (CUDA events) beside its plain version and
-   its bound.
+   just after; one frame is re-run with the plain matcher and compared, and
+   the masked_nn arguments of that frame's two searches are recorded and
+   checked as in phase 2;
+4. time the step and each kernel (CUDA events, the whole wrapper call) beside
+   its plain version and its bound, with the gated-in pairs, the share of
+   live tile pairs, the host's enqueue time and each CUDA kernel's device
+   time (torch.profiler).
 
 Prints a `kernels` JSON line before the last line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -99,18 +109,87 @@ def nn_problem(n, m, d=128, seed=0, ties=True):
                 rad2=radius * radius)
 
 
-def check_masked_nn(case, prob, ratio=0.8, max_dist=1.2):
-    """Kernel vs plain on one problem; raises on disagreement.  Returns
-    (max |best - best_plain| over gated-in rows, kernel args)."""
+def edge_problem(case):
+    """The contract's edge cases, built on the tie problem."""
+    shape = {"ragged m 1100x2001": (1100, 2001), "large 20000x20000": (20000, 20000)}
+    p = nn_problem(*shape.get(case, (300, 257)), ties=True, seed=11)
+    r = np.sqrt(p["rad2"])
+    if case == "all rows gated out":
+        r[:] = 0.0
+        p["uv_b"] += 0.5
+    elif case == "n = 1":
+        p = {k: (v[:1] if k in ("desc_a", "uv_a", "valid_a", "levels_a", "rad2") else v)
+             for k, v in p.items()}
+        p["valid_a"][0] = True
+        r = r[:1]
+    elif case == "m = 1":
+        p = {k: (v[:1] if k in ("desc_b", "uv_b", "valid_b", "levels_b") else v)
+             for k, v in p.items()}
+        p["uv_a"][:] = p["uv_b"][0]
+        p["valid_a"][:] = True
+        p["valid_b"][:] = True
+        p["levels_a"][:] = p["levels_b"][0]
+    elif case == "duplicates across a tile and a cell boundary":
+        p["desc_b"][64] = p["desc_b"][63]
+        p["uv_b"][63] = (31.5, 100.0)
+        p["uv_b"][64] = (32.5, 100.0)
+        p["valid_b"][63:65] = True
+        p["levels_b"][63:65] = 1
+        p["desc_a"][:4] = p["desc_b"][63]
+        p["uv_a"][:4] = (32.0, 100.0)
+        p["valid_a"][:4] = True
+        p["levels_a"][:4] = 1
+        r[:4] = 5.0
+    elif case == "non-finite positions":
+        p["valid_a"][:8] = True
+        p["uv_a"][0] = (np.nan, 10.0)
+        p["uv_a"][1] = (np.inf, 10.0)
+        p["uv_a"][2] = (-np.inf, np.inf)
+        p["uv_a"][3] = (np.inf, 10.0)
+        r[3] = np.inf
+        r[4] = np.inf
+        r[5] = np.nan
+        p["uv_b"][5] = (np.nan, 3.0)
+        p["uv_b"][6] = (np.inf, 3.0)
+    p["rad2"] = None if case == "no window" else (r * r).astype(np.float32)
+    return p
+
+
+# the last: more entries than the sort keeps keys for in shared memory, one
+# column split, and more column tiles than one pass of the live-tile list
+EDGE_CASES = ("all rows gated out", "n = 1", "m = 1", "ragged m 1100x2001", "no window",
+              "duplicates across a tile and a cell boundary", "non-finite positions",
+              "large 20000x20000")
+
+
+def k1_args(prob):
+    """masked_nn's arguments on the card, optional ones filled as the
+    wrapper fills them."""
     import torch
     from asdslam_torch.ops import masked_nn as k1
 
-    t = {k: torch.as_tensor(v).cuda() for k, v in prob.items()}
-    args = (t["desc_a"], t["desc_b"], t["valid_a"], t["valid_b"], t["uv_a"], t["uv_b"],
-            t["rad2"], t["levels_a"], t["levels_b"], (-1.0, 1.0))
-    idx, best, second = k1.masked_nn(*args)
+    t = {k: (None if v is None else torch.as_tensor(v).cuda()) for k, v in prob.items()}
+    uv_a, uv_b, rad2, la, lb = k1._defaults(t["desc_a"], t["desc_b"], t["uv_a"], t["uv_b"],
+                                            t["rad2"], t["levels_a"], t["levels_b"])
+    return (t["desc_a"], t["desc_b"], t["valid_a"], t["valid_b"], uv_a, uv_b, rad2, la, lb,
+            (-1.0, 1.0))
+
+
+def check_k1(case, args, ratio=0.8, max_dist=1.2):
+    """Kernel vs plain on one set of arguments; raises on disagreement, on
+    outputs that differ between two runs, or on a culled tile pair that
+    holds a gated-in pair.  Returns (the larger of max |d best| and
+    max |d second|, gated-in pairs, share of live tile pairs)."""
+    import torch
+    from asdslam_torch.ops import masked_nn as k1
+
+    (idx, best, second), prep = k1.masked_nn_tiles(*args)
+    again, _ = k1.masked_nn_tiles(*args)
     pidx, pbest, psecond = k1.masked_nn_plain(*args)
     torch.cuda.synchronize()
+    for name, x, y in zip(("idx", "best", "second"), (idx, best, second), again):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{case}: {name} differs between two runs")
 
     def ok_of(b, s):
         return (b <= max_dist) & (b < ratio * s)
@@ -128,32 +207,82 @@ def check_masked_nn(case, prob, ratio=0.8, max_dist=1.2):
     serr = float((second - psecond)[psecond < k1.BIG].abs().max()) if (psecond < k1.BIG).any() else 0.0
     if err > 5e-5 or serr > 5e-5:
         raise AssertionError(f"{case}: |d best| {err}, |d second| {serr} > 5e-5")
-    log(f"K1 {case}: N={prob['desc_a'].shape[0]} M={prob['desc_b'].shape[0]} "
-        f"ok rows {int(ok.sum())}, gated-in rows {int(gated_in.sum())}, "
-        f"max|d best| {err:.3g}, max|d second| {serr:.3g}")
-    return max(err, serr), args
+
+    # the culling, from the kernel's own ordering and summaries
+    gated = k1.gate_plain(*args[2:])
+    culled, live = k1.culled_gated_pairs(prep, gated, args[9])
+    if culled:
+        raise AssertionError(f"{case}: culled tile pairs hold {culled} gated-in pairs")
+    pairs_in, share = int(gated.sum()), float(live.float().mean())
+    log(f"K1 {case}: N={args[0].shape[0]} M={args[1].shape[0]} ok rows {int(ok.sum())}, "
+        f"gated-in rows {int(gated_in.sum())}, gated-in pairs {pairs_in}, live tile pairs "
+        f"{share:.4f}, max|d best| {err:.3g}, max|d second| {serr:.3g}, two runs bitwise equal")
+    return max(err, serr), pairs_in, share
 
 
-def k1_bound_ms(args):
+def k1_bound_ms(args, pairs_in):
     """Least time for the function on these inputs: bytes (each input read
-    once, each output written once) over the memory rate, or operations over
-    the peak rate of their type -- the bf16 dot for the pairs that pass the
-    gates (what this data needs) plus ~10 f32 gate/distance operations for
-    every pair -- whichever is larger."""
-    desc_a, desc_b = args[0], args[1]
-    n, d = desc_a.shape
-    m = desc_b.shape[0]
+    once, each output written once) over the memory rate, or the bf16 dot of
+    the pairs that pass the gates (what this data needs; a culling kernel
+    does not evaluate the gate for every pair) over the bf16 peak, whichever
+    is larger."""
+    n, d = args[0].shape
     in_bytes = sum(a.numel() * a.element_size() for a in args[:9])
-    out_bytes = n * 12
-    dx = args[4][:, None, 0] - args[5][None, :, 0]
-    dy = args[4][:, None, 1] - args[5][None, :, 1]
-    ld = (args[8][None, :] - args[7][:, None]).float()
-    gated = ((dx * dx + dy * dy) <= args[6][:, None]) & args[2][:, None] & args[3][None, :]
-    gated &= (ld >= args[9][0]) & (ld <= args[9][1])
-    pairs_in = int(gated.sum())
-    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES
-    t_ops = max(2.0 * d * pairs_in / PEAK_BF16_FLOPS, 10.0 * n * m / PEAK_F32_FLOPS)
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), pairs_in
+    t_bytes = (in_bytes + n * 12) / PEAK_BYTES
+    t_ops = 2.0 * d * pairs_in / PEAK_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k1_split(args, reps=20):
+    """Where a wrapper call's time goes: (host ms per call to enqueue it,
+    {kernel: device ms per call} from torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from asdslam_torch.ops import masked_nn as k1
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        k1.masked_nn(*args)
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    device = {}
+    for _ in range(3):  # a profile now and then comes back without device events
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                k1.masked_nn(*args)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            for name in ("order_kernel", "gather_kernel", "search_kernel"):
+                if name in e.key:
+                    t = getattr(e, "self_device_time_total", None)
+                    t = getattr(e, "self_cuda_time_total", 0) if t is None else t
+                    device[name] = t / 1e3 / reps
+        if device:
+            break
+    return host, device
+
+
+def record_searches(step, frames_u8, state, cand):
+    """The masked_nn arguments of both searches of one chained frame (the
+    wrapper is replaced for that frame only)."""
+    from asdslam_torch.ops import masked_nn as k1
+
+    calls, real = [], k1.masked_nn
+
+    def recorder(*a):
+        calls.append(a)
+        return real(*a)
+
+    recorder.launches = real.launches
+    k1.masked_nn = recorder
+    try:
+        run_chain(step, frames_u8, state, cand, 1, 1)
+    finally:
+        k1.masked_nn = real
+    if len(calls) < 2:
+        raise AssertionError(f"one frame made {len(calls)} masked_nn calls")
+    return calls[-2], calls[-1]  # the motion search's last try, the local-map search
 
 
 # --------------------------------------------------------------------------- #
@@ -315,13 +444,17 @@ def main():
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
 
     # ---- 2. K1 against its plain version ----------------------------------- #
-    errs, k1_args = [], {}
-    for case, n, m, ties in (("motion 2000x2000", 2000, 2000, False),
-                             ("local-map 8192x2000", 8192, 2000, False),
-                             ("ties 300x257", 300, 257, True)):
-        err, args = check_masked_nn(case, nn_problem(n, m, ties=ties, seed=n + m))
+    errs, k1_cases = [], {}
+    problems = [(case, nn_problem(n, m, ties=ties, seed=n + m))
+                for case, n, m, ties in (("motion 2000x2000", 2000, 2000, False),
+                                         ("local-map 8192x2000", 8192, 2000, False),
+                                         ("ties 300x257", 300, 257, True))]
+    problems += [(case, edge_problem(case)) for case in EDGE_CASES]
+    for case, prob in problems:
+        args = k1_args(prob)
+        err, pairs_in, share = check_k1(case, args)
         errs.append(err)
-        k1_args[case] = args
+        k1_cases[case] = (args, pairs_in, share)
 
     # ---- 3. the main path at full width ------------------------------------ #
     # KITTI defaults: 1241x376, 2000 features, 8 levels, 8192 candidates
@@ -359,6 +492,12 @@ def main():
     log(f"kernel vs plain matcher, one frame: src equal on {src_eq:.4f}, max|d pose| {dpose:.3g}")
     if src_eq < 0.99 or dpose > 1e-3:
         raise AssertionError("the step disagrees with its plain-matcher version")
+    # the two searches of that frame, on their real inputs
+    for case, args in zip(("frame 1 motion search", "frame 1 local-map search"),
+                          record_searches(step, frames_u8, state, cand)):
+        err, pairs_in, share = check_k1(case, args)
+        errs.append(err)
+        k1_cases[case] = (args, pairs_in, share)
 
     # ---- 4. timings ---------------------------------------------------------- #
     run_chain(step, frames_u8, state, cand, 1, 2)  # warm
@@ -383,17 +522,23 @@ def main():
         f"(idle share {1 - busy / wall:.3f}) [{card}]")
 
     shapes = []
-    for case in ("motion 2000x2000", "local-map 8192x2000"):
-        args = k1_args[case]
+    for case in ("motion 2000x2000", "local-map 8192x2000",
+                 "frame 1 motion search", "frame 1 local-map search"):
+        args, pairs_in, share = k1_cases[case]
         ms = time_ms(lambda: k1.masked_nn(*args), 50)
         plain_ms = time_ms(lambda: k1.masked_nn_plain(*args), 5)
-        bound, bound_by, pairs_in = k1_bound_ms(args)
-        shapes.append(dict(shape=case, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                           bound_by=bound_by, gated_in_pairs=pairs_in))
-        log(f"masked_nn {case}: kernel {ms:.4f} ms, plain (no yardstick) {plain_ms:.4f} ms, "
-            f"bound {bound:.5f} ms ({bound_by}) [{card}]")
+        bound, bound_by = k1_bound_ms(args, pairs_in)
+        host_ms, device_ms = k1_split(args)
+        shapes.append(dict(shape=case, n=args[0].shape[0], m=args[1].shape[0], ms=ms,
+                           plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                           gated_in_pairs=pairs_in, live_tile_share=share,
+                           host_enqueue_ms=host_ms, device_ms=device_ms))
+        log(f"masked_nn {case}: kernel {ms:.4f} ms (whole wrapper call), plain (no yardstick) "
+            f"{plain_ms:.4f} ms, gated-in pairs {pairs_in}, live tile pairs {share:.4f}, "
+            f"bound {bound:.5f} ms ({bound_by}); host enqueue {host_ms:.4f} ms, device "
+            + ", ".join(f"{k} {v:.4f}" for k, v in device_ms.items()) + f" ms [{card}]")
     log("masked_nn: no single PyTorch call computes a masked top-2 search, so library_ms is null")
-    main_shape = shapes[1]  # the local-map search, the larger launch of every frame
+    main_shape = shapes[3]  # the local-map search on its real inputs, every frame's larger call
     log(json.dumps({"kernels": [{
         "name": "masked_nn", "route": "cuda",
         "source": "asdslam_torch/csrc/masked_nn.cu",

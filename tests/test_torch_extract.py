@@ -2,7 +2,10 @@
 numpy inputs: pyramid and blur, FAST detection (tie order), orientation and
 patches, ASDNet (stride-2 padding, folded BN, f32 and bf16), and the
 synthetic renderer.  Tolerances: indices and masks exact; pyramid 1e-4;
-ASDNet 1e-4 in f32 and 2e-2 in bf16."""
+ASDNet 1e-4 in f32 and 2.72e-3 in bf16 (twice the measured 1.36e-3: with
+each conv returning f32 as the reference's does, what is left is bf16
+activations that round to neighbouring values after sub-ulp differences in
+the whitening and the conv sums)."""
 
 import os
 import pickle
@@ -153,7 +156,7 @@ def test_asdnet_bf16():
     x = _patches(3)
     dj = np.asarray(jnet.apply(params, jnp.asarray(x)))
     dt = net(torch.tensor(x)).detach().numpy()
-    assert np.abs(dj - dt).max() <= 2e-2
+    assert np.abs(dj - dt).max() <= 2.72e-3
 
 
 def test_render_frame():

@@ -1,7 +1,11 @@
 """Parity of the port's matchers (asdslam_torch.ops.match, ops.masked_nn)
-with the JAX package on the same numpy inputs, and of the masked-NN CUDA
-kernel with its plain version (on a CUDA device only).  Indices and masks
-exact; distances 1e-5."""
+with the JAX package on the same numpy inputs; the masked-NN kernel's
+ordering and tile culling walked in Python; and the CUDA kernel against its
+plain version (on a CUDA device only).  Indices and masks exact; distances
+1e-5 on the CPU, 5e-5 for the kernel (its tensor-core dot sums in another
+order)."""
+
+import os
 
 import numpy as np
 import jax.numpy as jnp
@@ -10,8 +14,15 @@ import torch
 
 from asdslam_tpu.ops import match as jmatch
 from asdslam_tpu.ops import pallas_match
+from asdslam_torch.config import SlamConfig as TConfig
+from asdslam_torch.frontend import extractor as text
+from asdslam_torch.geometry import se3 as tse3
+from asdslam_torch.io import synthetic as tsyn
+from asdslam_torch.models import asdnet as tnet
 from asdslam_torch.ops import masked_nn as tk1
 from asdslam_torch.ops import match as tmatch
+
+WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(__file__)), "asdnet_weights.pkl")
 
 
 def _problem(seed, n=300, m=257, d=128, tie_rows=8):
@@ -157,23 +168,207 @@ def test_masked_nn_raises_on_a_device_without_kernel():
                       torch.tensor(p["valid_a"]).to("meta"), torch.tensor(p["valid_b"]).to("meta"))
 
 
+# --------------------------------------------------------------------------- #
+# The kernel's ordering and culling, walked in Python
+# --------------------------------------------------------------------------- #
+LEVEL_WINDOW = (-1.0, 1.0)
+
+
+def _k1_args(p, rad2="radius"):
+    """masked_nn's torch arguments for a problem dict (numpy arrays)."""
+    r2 = None if rad2 is None else torch.tensor(p["radius"] ** 2)
+    return [torch.tensor(p[k]) for k in ("desc_a", "desc_b", "valid_a", "valid_b", "uv_a", "uv_b")] \
+        + [r2, torch.tensor(p["lvl_a"]), torch.tensor(p["lvl_b"])]
+
+
+def _frame_problem():
+    """Motion-search inputs from two rendered corridor frames: the features
+    of frame 0 as rows, frame 1's as columns, windows of 15 * 1.2^level px."""
+    cfg = TConfig(n_features=600, n_levels=4, image_width=320, image_height=240,
+                  fx=260.0, fy=260.0, cx=160.0, cy=120.0)
+    K = torch.tensor([[260.0, 0, 160.0], [0, 260.0, 120.0], [0, 0, 1.0]])
+    net = tnet.ASDNet()
+    net.load_state_dict(tnet.load_weights(WEIGHTS))
+    extract = text.make_extractor(cfg, lambda x: net(x, compute_dtype=torch.float32))
+    frames, _ = tsyn.render_sequence(K, 2, 240, 320, step=0.3, turn=0.004, device="cpu")
+    fa, fb = [extract((f * 255.0).clamp(0, 255).to(torch.uint8).float() / 255.0) for f in frames]
+    radius = 15.0 * 1.2 ** fa.level.numpy().astype(np.float32)
+    return dict(desc_a=fa.desc.numpy(), desc_b=fb.desc.numpy(), uv_a=fa.uv.numpy(),
+                uv_b=fb.uv.numpy(), valid_a=fa.valid.numpy(), valid_b=fb.valid.numpy(),
+                lvl_a=fa.level.numpy(), lvl_b=fb.level.numpy(), radius=radius.astype(np.float32))
+
+
+def _edge_problem(case):
+    """The contract's edge cases, on top of the tie problem."""
+    p = _problem(11, n=1100, m=2001) if case == "ragged_m" else _problem(11)
+    if case == "all_gated_out":
+        p["radius"][:] = 0.0
+        p["uv_b"] += 0.5
+    elif case == "n_1":
+        p = {k: (v[:1] if k in ("desc_a", "uv_a", "valid_a", "lvl_a", "radius") else v)
+             for k, v in p.items()}
+        p["valid_a"][0] = True
+    elif case == "m_1":
+        p = {k: (v[:1] if k in ("desc_b", "uv_b", "valid_b", "lvl_b") else v)
+             for k, v in p.items()}
+        p["uv_a"][:] = p["uv_b"][0]
+        p["valid_a"][:] = True
+        p["valid_b"][:] = True
+        p["lvl_a"][:] = p["lvl_b"][0]
+    elif case == "dup_tile_and_cell":
+        # columns 63 and 64 (a 64-column tile boundary) hold one descriptor at
+        # x = 31.5 and 32.5 (a 32-px cell boundary); rows 0-3 sit between them
+        p["desc_b"][64] = p["desc_b"][63]
+        p["uv_b"][63] = (31.5, 100.0)
+        p["uv_b"][64] = (32.5, 100.0)
+        p["valid_b"][63:65] = True
+        p["lvl_b"][63:65] = 1
+        p["desc_a"][:4] = p["desc_b"][63]
+        p["uv_a"][:4] = (32.0, 100.0)
+        p["valid_a"][:4] = True
+        p["lvl_a"][:4] = 1
+        p["radius"][:4] = 5.0
+    elif case == "nonfinite_uv":
+        p["valid_a"][:8] = True
+        p["uv_a"][0] = (np.nan, 10.0)
+        p["uv_a"][1] = (np.inf, 10.0)
+        p["uv_a"][2] = (-np.inf, np.inf)
+        p["uv_a"][3] = (np.inf, 10.0)
+        p["radius"][3] = np.inf
+        p["radius"][4] = np.inf     # a finite row with an infinite window
+        p["radius"][5] = np.nan
+        p["uv_b"][5] = (np.nan, 3.0)
+        p["uv_b"][6] = (np.inf, 3.0)
+    return p
+
+
+EDGE_CASES = ("all_gated_out", "n_1", "m_1", "ragged_m", "no_window",
+              "dup_tile_and_cell", "nonfinite_uv")
+
+
+def _tile_walk(desc_a, desc_b, valid_a, valid_b, uv_a, uv_b, rad2, lvl_a, lvl_b, lw):
+    """The kernel's algorithm in plain PyTorch: order by cell, summarise the
+    tiles, visit only the live tile pairs, and keep a running top-2 per row
+    ordered by (d, original column).  Also checks that every gated-in pair
+    lies in a live tile pair.  Returns (idx, best, second, live share)."""
+    uv_a, uv_b, rad2, lvl_a, lvl_b = tk1._defaults(desc_a, desc_b, uv_a, uv_b, rad2, lvl_a, lvl_b)
+    prep = tk1.prepare_plain(valid_a, valid_b, uv_a, uv_b, rad2, lvl_a, lvl_b)
+    n = desc_a.shape[0]
+    gated = tk1.gate_plain(valid_a, valid_b, uv_a, uv_b, rad2, lvl_a, lvl_b, lw)
+    culled, live = tk1.culled_gated_pairs(prep, gated, lw)
+    assert culled == 0, f"culled tile pairs hold {culled} gated-in pairs"
+    pa, pb = prep.perm_a, prep.perm_b
+
+    a2, b2 = (desc_a * desc_a).sum(1), (desc_b * desc_b).sum(1)
+    a16 = desc_a.to(torch.bfloat16).to(torch.float32)
+    b16 = desc_b.to(torch.bfloat16).to(torch.float32)
+    best = torch.full((n,), tk1.BIG)
+    second = torch.full((n,), tk1.BIG)
+    idx = torch.zeros(n, dtype=torch.int64)
+    for rt, ct in live.nonzero().tolist():
+        rows = pa[rt * tk1.TILE:(rt + 1) * tk1.TILE]
+        cols = pb[ct * tk1.TILE:(ct + 1) * tk1.TILE]
+        rows, cols = rows[rows >= 0], torch.sort(cols[cols >= 0]).values
+        ok = gated[rows][:, cols]
+        d = torch.clamp(a2[rows, None] + b2[None, cols] - 2.0 * (a16[rows] @ b16[cols].T), min=0.0)
+        d = torch.where(ok, d, float("inf"))
+        tb, ti = d.min(dim=1)  # first occurrence: the lowest column on ties
+        ts = torch.where(torch.arange(len(cols))[None, :] == ti[:, None], float("inf"), d).amin(dim=1)
+        tj = cols[ti]
+        has = tb < float("inf")
+        b0, i0, s0 = best[rows], idx[rows], second[rows]
+        win = has & ((tb < b0) | ((tb == b0) & (tj < i0)))
+        s_new = torch.minimum(torch.minimum(s0, ts.clamp(max=tk1.BIG)), torch.where(win, b0, tb))
+        second[rows] = torch.where(has, s_new, s0)
+        best[rows] = torch.where(win, tb, b0)
+        idx[rows] = torch.where(win, tj, i0)
+    return idx.to(torch.int32), best, second, float(live.float().mean())
+
+
+def _assert_k1_close(got, ref, atol, max_dist=1.2, ratio=0.8):
+    """ok (the ratio test's outcome) exact, idx exact on rows whose best is
+    clear of the second, best and second within atol."""
+    (ig, bg, sg), (ir, br, sr) = [[np.asarray(x) for x in t] for t in (got, ref)]
+    np.testing.assert_array_equal((bg <= max_dist) & (bg < ratio * sg),
+                                  (br <= max_dist) & (br < ratio * sr))
+    clear = (sr - br) > 1e-4
+    np.testing.assert_array_equal(ig[clear], ir[clear])
+    np.testing.assert_allclose(bg, br, atol=atol, rtol=0)
+    np.testing.assert_allclose(sg, sr, atol=atol, rtol=0)
+
+
+def _jax_k1(args, lw):
+    ja = [None if a is None else jnp.asarray(a.numpy()) for a in args]
+    return pallas_match.masked_nn(*ja, lw, interpret=True)
+
+
+@pytest.fixture(scope="module")
+def frame_problem():
+    return _frame_problem()
+
+
+@pytest.mark.parametrize("source", ["tie_problem", "masked_rows", "frame_features"])
+def test_masked_nn_tile_walk(source, frame_problem):
+    """Culling and ordering as the kernel does them, walked in Python, give
+    the plain search's and the reference kernel's results."""
+    if source == "frame_features":
+        p = frame_problem
+    else:
+        p = _problem(12, n=700, m=600)
+        if source == "masked_rows":
+            p["valid_a"][:100] = False
+            p["valid_b"][::3] = False
+    args = _k1_args(p)
+    walk = _tile_walk(*args, LEVEL_WINDOW)
+    plain = tk1.masked_nn_plain(*args, LEVEL_WINDOW)
+    _assert_k1_close(walk[:3], plain, 1e-5)
+    _assert_k1_close(walk[:3], _jax_k1(args, LEVEL_WINDOW), 1e-5)
+    assert (plain[1] < tk1.BIG).sum() > 50
+    if source == "frame_features":
+        assert walk[3] < 1.0, f"live tile share {walk[3]}"  # the windows cull (0.73 here)
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_masked_nn_edge_cases(case):
+    """The contract's edge cases: the plain search against the reference
+    kernel (interpret mode), and the tile walk against both."""
+    p = _edge_problem(case)
+    args = _k1_args(p, rad2=None if case == "no_window" else "radius")
+    plain = tk1.masked_nn(*args, LEVEL_WINDOW)
+    _assert_k1_close(plain, _jax_k1(args, LEVEL_WINDOW), 1e-5)
+    _assert_k1_close(_tile_walk(*args, LEVEL_WINDOW)[:3], plain, 1e-5)
+    idx, best, second = [x.numpy() for x in plain]
+    if case == "all_gated_out":
+        assert (idx == 0).all() and (best == tk1.BIG).all() and (second == tk1.BIG).all()
+    if case == "m_1":
+        assert (second == tk1.BIG).all() and (best < tk1.BIG).any()
+    if case == "n_1":
+        assert best[0] < tk1.BIG
+    if case == "dup_tile_and_cell":
+        assert (idx[:4] == 63).all() and (second[:4] == best[:4]).all()
+    if case == "nonfinite_uv":
+        assert best[0] == tk1.BIG and best[5] == tk1.BIG and best[4] < tk1.BIG
+
+
 @pytest.mark.gpu
-def test_masked_nn_kernel_matches_plain_on_cuda():
+def test_masked_nn_kernel_matches_plain_on_cuda(frame_problem):
+    """The kernel on the walk's and the edge cases' inputs, and twice on the
+    same inputs with bitwise-equal results."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    for seed, n, m in ((7, 300, 257), (8, 2000, 2000)):
-        p = _problem(seed, n=n, m=m)
-        p["valid_a"][:40] = False
-        args = [torch.tensor(p[k]).cuda() for k in
-                ("desc_a", "desc_b", "valid_a", "valid_b", "uv_a", "uv_b")]
-        args += [torch.tensor(p["radius"] ** 2).cuda(), torch.tensor(p["lvl_a"]).cuda(),
-                 torch.tensor(p["lvl_b"]).cuda(), (-1.0, 1.0)]
+    problems = [(c, _edge_problem(c)) for c in EDGE_CASES]
+    problems += [("tie_problem", _problem(12, n=700, m=600)),
+                 ("motion_shape", _problem(8, n=2000, m=2000)),
+                 ("frame_features", frame_problem)]
+    for case, p in problems:
+        args = [None if a is None else a.cuda()
+                for a in _k1_args(p, rad2=None if case == "no_window" else "radius")]
         before = tk1.masked_nn.launches
-        idx, best, second = tk1.masked_nn(*args)
+        got = tk1.masked_nn(*args, LEVEL_WINDOW)
         assert tk1.masked_nn.launches == before + 1
-        pidx, pbest, psecond = tk1.masked_nn_plain(*args)
+        again = tk1.masked_nn(*args, LEVEL_WINDOW)
+        plain = tk1.masked_nn(*[None if a is None else a.cpu() for a in args], LEVEL_WINDOW)
         torch.cuda.synchronize()
-        clear = (psecond - pbest) > 1e-4
-        assert torch.equal(idx[clear], pidx[clear])
-        assert float((best - pbest).abs().max()) <= 5e-5
-        assert float((second - psecond).abs().max()) <= 5e-5
+        for x, y in zip(got, again):
+            assert torch.equal(x, y), case
+        _assert_k1_close([x.cpu() for x in got], plain, 5e-5)
