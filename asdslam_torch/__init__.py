@@ -5,6 +5,7 @@ Plain tensor code is PyTorch; the one kernel the JAX package wrote by hand
 (``csrc/masked_nn.cu``, wrapped by ``ops/masked_nn.py``).  Module paths
 mirror ``asdslam_tpu`` so each function's reference is found by path.
 
+The entry point is ``asdslam_torch.system.System`` (synchronous mode so far).
 Entry points take a ``device`` argument that defaults to ``"cuda"``.
 """
 

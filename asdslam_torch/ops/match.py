@@ -1,6 +1,6 @@
 """Descriptor matching on distance matrices, plus the fused projection search.
 
-Port of the tracking matchers of ``asdslam_tpu/ops/match.py`` (the
+Port of the matchers of ``asdslam_tpu/ops/match.py`` (the
 reference's ORBmatcher, ORBmatcher.cc): squared L2 via |a|^2 + |b|^2 - 2 a.b
 with the cross term in bf16 and f32 accumulation, gates as an additive +inf
 mask, best/second for the ratio test, duplicate resolution, and the 30-bin
@@ -112,6 +112,33 @@ def window_mask(uv_a, uv_b, radius, valid_a=None, valid_b=None):
     return torch.where(inside, 0.0, INF)
 
 
+def epipolar_mask(F12, uv1, uv2, inv_sigma2_2, chi2_th: float = 3.84):
+    """[N, M] additive mask keeping pairs whose point-to-epipolar-line distance
+    in image 2 passes the chi2 gate (ORBmatcher::CheckDistEpipolarLine)."""
+    h1 = torch.cat([uv1, torch.ones_like(uv1[:, :1])], dim=1)
+    h2 = torch.cat([uv2, torch.ones_like(uv2[:, :1])], dim=1)
+    l2 = h1 @ F12.T                      # lines in image 2, [N, 3]
+    num = (l2 @ h2.T) ** 2               # [N, M]
+    den = (l2[:, 0] ** 2 + l2[:, 1] ** 2)[:, None]
+    dsqr = num / torch.clamp(den, min=1e-12)
+    ok = dsqr * inv_sigma2_2[None, :] < chi2_th
+    return torch.where(ok, 0.0, INF)
+
+
+def fundamental_from_poses(K, R1, t1, R2, t2):
+    """F12 such that x2^T F12 x1 = 0 for poses T_1w, T_2w (world->cam)."""
+    R12 = R2 @ R1.T
+    t12 = t2 - torch.einsum("ij,j->i", R12, t1)
+    zero = torch.zeros_like(t12[0])
+    tx = torch.stack([
+        torch.stack([zero, -t12[2], t12[1]]),
+        torch.stack([t12[2], zero, -t12[0]]),
+        torch.stack([-t12[1], t12[0], zero]),
+    ])
+    Kinv = torch.linalg.inv(K)
+    return Kinv.T @ tx @ R12 @ Kinv
+
+
 def level_mask(levels_a, levels_b, min_delta=-1, max_delta=1):
     """Scale-consistency gate: match only if level_b is in
     [level_a + min_delta, level_a + max_delta]."""
@@ -161,8 +188,10 @@ def search_projection(
         r = r.expand(n).contiguous()
         lw = ((-float(level_window), float(level_window))
               if pred_level_a is not None else (-1e9, 1e9))
+        # a bf16 descriptor block widens exactly; the kernel takes f32
         idx, best, second = masked_nn_mod.masked_nn(
-            desc_a, desc_b, valid_a, vb, uv_proj_a, uv_b, r * r,
+            desc_a.to(torch.float32), desc_b.to(torch.float32), valid_a, vb,
+            uv_proj_a, uv_b, r * r,
             pred_level_a, levels_b, lw)
         ok = best <= max_dist
         if ratio < 1.0:
@@ -179,3 +208,32 @@ def search_projection(
     idx, d, ok = nn_match(dist, max_dist, ratio)
     ok = resolve_duplicates(idx, d, ok, desc_b.shape[0])
     return idx, d, ok
+
+
+def _search_masked(dist, m_size, max_dist, ratio):
+    idx, d, ok = nn_match(dist, max_dist, ratio)
+    ok = resolve_duplicates(idx, d, ok, m_size)
+    return idx, d, ok
+
+
+def search_triangulation(
+    desc1, desc2, uv1, uv2, valid1, valid2, F12, inv_sigma2_2,
+    max_dist: float, ratio: float = 1.0,
+):
+    """Epipolar-constrained matching of unmatched features between two KFs
+    (ORBmatcher::SearchForTriangulation without the BoW-node gating: the
+    full distance matrix)."""
+    dist = distance_matrix(desc1, desc2)
+    mask = valid1[:, None] & valid2[None, :]
+    dist = torch.where(mask, dist, INF)
+    dist = dist + epipolar_mask(F12, uv1, uv2, inv_sigma2_2)
+    return _search_masked(dist, desc2.shape[0], max_dist, ratio)
+
+
+def search_global(desc_a, desc_b, valid_a, valid_b, max_dist: float, ratio: float):
+    """Unconstrained NN search with ratio test (the role of SearchByBoW,
+    with the node gating dropped: a full [N, M] distance matrix)."""
+    dist = distance_matrix(desc_a, desc_b)
+    mask = valid_a[:, None] & valid_b[None, :]
+    dist = torch.where(mask, dist, INF)
+    return _search_masked(dist, desc_b.shape[0], max_dist, ratio)

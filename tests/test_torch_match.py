@@ -372,3 +372,38 @@ def test_masked_nn_kernel_matches_plain_on_cuda(frame_problem):
         for x, y in zip(got, again):
             assert torch.equal(x, y), case
         _assert_k1_close([x.cpu() for x in got], plain, 5e-5)
+
+
+def test_scratch_cache_is_bounded_and_keyed_by_shape(monkeypatch):
+    """The wrapper's scratch buffers: one per (device, stream, N, M), so a
+    call never gets a buffer sized for another shape, and the table is
+    emptied before it passes 17 entries (the caching allocator hands a freed
+    buffer's memory only to later work of the same stream, so a queued launch
+    keeps what it reads).  Walked on the CPU with the launch itself stubbed."""
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def masked_nn_launch(*a):
+            calls.append(a)
+            return 0
+
+    monkeypatch.setattr(tk1, "_lib", lambda: Lib)
+    monkeypatch.setattr(tk1, "_layout", lambda n, m: (64 * (n + m), {}, 1))
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 7, raising=False)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)  # a CPU tensor has no index
+    monkeypatch.setattr(tk1, "_scratch", {})
+    seen = {}
+    for n in [256, 512, 1024, 2000, 8192, 256, 512] + list(range(300, 330)):
+        m = 8
+        args = [torch.zeros((n, 128)), torch.zeros((m, 128)),
+                torch.ones(n, dtype=torch.bool), torch.ones(m, dtype=torch.bool),
+                torch.zeros((n, 2)), torch.zeros((m, 2)), torch.ones(n),
+                torch.zeros(n, dtype=torch.int32), torch.zeros(m, dtype=torch.int32)]
+        _, scratch = tk1._launch(tuple(args), (-1.0, 1.0))
+        assert scratch.numel() == 64 * (n + 8)
+        if n in seen and (None, 7, n, 8) in tk1._scratch:
+            assert tk1._scratch[(None, 7, n, 8)] is scratch
+        seen[n] = scratch
+        assert len(tk1._scratch) <= 17
+    assert len(calls) == 37
