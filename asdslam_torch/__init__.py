@@ -11,7 +11,16 @@ Entry points take a ``device`` argument that defaults to ``"cuda"``.
 
 __version__ = "0.1.0"
 
-import torch as _torch
+import os as _os
+
+# The asynchronous mapping worker runs its launches on a CUDA stream of its
+# own beside the tracker's.  cuBLAS keeps results bitwise reproducible across
+# concurrent streams only with a fixed workspace configuration (cuBLAS
+# documentation, "Results reproducibility"); it is read when the library is
+# first used, so it is set here, unless the caller chose one.
+_os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch as _torch  # noqa: E402
 
 # Geometry and estimators need true f32 products: the reference runs at
 # jax_default_matmul_precision="highest" (its RANSAC fitting loses inliers to

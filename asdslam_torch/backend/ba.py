@@ -124,7 +124,7 @@ def pose_only_optimize(
         return torch.sum(torch.where(inliers, c, torch.zeros_like(c)))
 
     def lm_round(pose, inliers, use_huber):
-        lam = torch.tensor(1e-3, dtype=pose.dtype, device=dev)
+        lam = torch.full((), 1e-3, dtype=pose.dtype, device=dev)  # no host copy
         cost = cost_fn(pose, inliers)
         for _ in range(iters):
             r, Jc, _, _ = _project_residuals(pose[None], points, obs, K)

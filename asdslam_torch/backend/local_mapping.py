@@ -2,12 +2,11 @@
 
 Port of ``asdslam_tpu/backend/local_mapping.py``: numpy bookkeeping on the
 store around three device calls (triangulate_neighbors, fuse_pairs,
-bundle_adjust), each fetched once.  Loop closing is not ported yet, so
-``loop_closer`` must be None.
+bundle_adjust), each fetched once, then the loop closer when there is one.
 
 Mirrors LocalMapping::DoMapping (src/vslam/src/LocalMapping.cc:59-113), run
-inline after keyframe insertion exactly like the reference (which is
-single-threaded):
+after keyframe insertion: inline in synchronous mode, as the reference does
+(it is single-threaded), or with phase B in the tracker's mapping worker:
 
 1. ProcessNewKeyFrame  — descriptor/normal refresh for associated points
 2. MapPointCulling     — found/visible < 0.25, or too few observations
@@ -37,9 +36,6 @@ from asdslam_torch.utils.tracing import Tracer
 class LocalMapper:
     def __init__(self, cfg: SlamConfig, K, store: MapStore, loop_closer=None,
                  device="cuda"):
-        if loop_closer is not None:
-            raise NotImplementedError(
-                "loop closing (ROADMAP: loop closure) is not ported yet")
         self.cfg = cfg
         self.device = torch.device(device)
         self.K = torch.as_tensor(K, dtype=torch.float32).to(self.device)
@@ -62,7 +58,6 @@ class LocalMapper:
 
     # ------------------------------------------------------------------ #
     def process(self, kf: int):
-        self.last_pass = {"kf": kf, "new_points": 0, "fuse_pairs": 0, "local_ba": None}
         self.process_phase_a(kf)
         self.process_phase_b(kf)
 
@@ -71,6 +66,7 @@ class LocalMapper:
         DoMapping whose OUTPUT the tracker needs immediately (new map points
         feed the next frames' local-map search).  It neither moves poses nor
         merges points."""
+        self.last_pass = {"kf": kf, "new_points": 0, "fuse_pairs": 0, "local_ba": None}
         tr = self.tracer
         with tr.span("mapping_a"):
             with tr.span("process_kf"):
@@ -80,8 +76,9 @@ class LocalMapper:
                 self._create_new_map_points(kf)
 
     def process_phase_b(self, kf: int):
-        """Neighbor fusion + local BA + keyframe culling — the expensive
-        tail of DoMapping."""
+        """Neighbor fusion + local BA + keyframe culling + loop closing —
+        the expensive tail of DoMapping, safe to overlap with tracking (the
+        tracker re-anchors to the adjusted map at the deterministic join)."""
         store = self.store
         tr = self.tracer
         with tr.span("mapping"):
@@ -92,6 +89,9 @@ class LocalMapper:
                     self._local_ba(kf)
             with tr.span("cull_kfs"):
                 self._cull_keyframes(kf)
+        if self.loop_closer is not None:
+            with tr.span("loop_closing"):
+                self.loop_closer.process(kf)
 
     # ------------------------------------------------------------------ #
     def _process_new_keyframe(self, kf: int):
@@ -341,6 +341,8 @@ class LocalMapper:
                 [_mat_to_quat_np_batch(Rr[None])[0], tr]).astype(np.float32)
         for child in np.nonzero(store.kf_parent[:store.n_kf] == kf)[0]:
             store.kf_parent[child] = parent
+        if self.loop_closer is not None and self.loop_closer.db is not None:
+            self.loop_closer.db.erase(kf)
 
     # ------------------------------------------------------------------ #
     def _local_ba(self, kf: int):

@@ -9,8 +9,11 @@ the device from frame to frame.
 
 Differences from the reference, none of them in results:
 
-- the widened-radius retry (a ``lax.cond`` there) is a plain branch on the
-  narrow search's match count, one small device-to-host read per frame;
+- the widened-radius retry (a ``lax.cond`` there) runs both searches and
+  keeps the wide one's result where the narrow one found fewer than
+  ``min_motion_matches`` (a ``torch.where`` on the count): the step reads
+  nothing back to the host, so a caller can queue the next frame before
+  this one's result is fetched;
 - each ``.at[...].set(mode="drop")`` is a scatter into a buffer one row
   longer than the output, whose last row takes the dropped writes and is
   sliced off.  Rows that land in the kept part are unique (the matcher has
@@ -127,9 +130,10 @@ def make_track_step(cfg: SlamConfig, K, extract_fn, device="cuda"):
                 ratio=1.0, pred_level_a=prev_feat.level, levels_b=feat.level,
                 use_kernel=use_kernel)
 
-        idx_m, d_m, ok_m = run_search(cfg.search_radius_motion)
-        if int(ok_m.sum()) < cfg.min_motion_matches:
-            idx_m, d_m, ok_m = run_search(cfg.search_radius_motion_wide)
+        narrow = run_search(cfg.search_radius_motion)
+        wide = run_search(cfg.search_radius_motion_wide)
+        use_wide = torch.sum(narrow[2], dtype=torch.int32) < cfg.min_motion_matches
+        idx_m, d_m, ok_m = (torch.where(use_wide, w, n) for n, w in zip(narrow, wide))
         if cfg.check_orientation:
             ok_m = match.rotation_consistency(
                 prev_feat.angle, feat.angle, idx_m, ok_m,
@@ -154,8 +158,9 @@ def make_track_step(cfg: SlamConfig, K, extract_fn, device="cuda"):
         if prev_crow is not None:
             held = prev_crow >= 0
             rows = torch.where(held, torch.clamp(prev_crow, 0, P - 1).to(torch.int64), P)
-            bound = torch.zeros(P + 1, dtype=torch.bool, device=device)
-            bound[rows] = True
+            # index_fill_ takes the value as a kernel argument: indexing
+            # with a Python scalar would copy it to the device and wait
+            bound = torch.zeros(P + 1, dtype=torch.bool, device=device).index_fill_(0, rows, True)
             cand_valid = cand_valid & ~bound[:P]
         uv_c, lvl_c, _, vis_c = visibility.project_points(
             pose1, K, cand_pts.pos, cand_pts.normal,

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exports a plain C launch function.  At first use it
 is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``<repo>/build/kernels/`` and loaded with ``ctypes``; the library's name
 carries a hash of the source and flags, so an edited source rebuilds.  Only
-the sources in the checkout are used.
+the sources in the checkout are used.  Building and loading hold one
+lock, so two threads at first use build once.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -24,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()  # held by build and load
 
 
 def _nvcc() -> str:
@@ -47,6 +50,11 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     per source, all started together.  Returns each compiled source's
     compiler log (``-Xptxas -v``: registers, shared memory, spills); raises
     if any build fails."""
+    with _lock:
+        return _build(names)
+
+
+def _build(names: Iterable[str]) -> Dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -71,9 +79,10 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
-    return lib
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            _build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _loaded[name] = lib
+        return lib

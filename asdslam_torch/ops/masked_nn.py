@@ -15,15 +15,23 @@ meet; ``prepare_plain`` and ``live_tiles`` compute the same in plain PyTorch
 so the culling can be checked without a card.
 
 ``masked_nn`` launches the kernel for CUDA tensors and counts the call in
-``masked_nn.launches``; for CPU tensors it runs ``masked_nn_plain``.  It never
-falls back from the kernel: a tensor it cannot take, or a failed launch,
-raises.
+``masked_nn.launches`` (and, inside a ``call_site`` block of the launching
+thread, in ``masked_nn.by_site``); for CPU tensors it runs
+``masked_nn_plain``.  It never falls back from the kernel: a tensor it cannot
+take, or a failed launch, raises.
+
+The wrapper may be called from several threads at once (the tracker and the
+mapping worker): the scratch table and the counters are changed under one
+lock, and scratch is keyed by the calling thread's current stream, so
+threads on their own streams never share a buffer.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -260,6 +268,36 @@ _NAMES = ("desc_a", "desc_b", "valid_a", "valid_b", "uv_a", "uv_b", "rad2", "lev
 _DTYPES = (torch.float32, torch.float32, torch.bool, torch.bool, torch.float32,
            torch.float32, torch.float32, torch.int32, torch.int32)
 _scratch = {}  # (device index, stream, N, M) -> scratch buffer, reused in stream order
+_lock = threading.Lock()  # guards _scratch and the launch counters
+_tls = threading.local()  # the calling thread's call-site label
+
+
+@contextlib.contextmanager
+def call_site(name: str):
+    """Attribute this thread's launches inside the block to ``name`` in
+    ``masked_nn.by_site`` (besides ``masked_nn.launches``)."""
+    prev = getattr(_tls, "site", None)
+    _tls.site = name
+    try:
+        yield
+    finally:
+        _tls.site = prev
+
+
+def _scratch_buffer(dev, stream, n, m):
+    """The scratch buffer of (device, stream, N, M), made at first use.  The
+    table is emptied before it passes 17 entries: a dropped buffer goes back
+    to the allocator's pool of the stream it was made on, so a queued launch
+    keeps what it reads."""
+    key = (dev.index, stream, n, m)
+    nbytes = _layout(n, m)[0]
+    with _lock:
+        scratch = _scratch.get(key)
+        if scratch is None:
+            if len(_scratch) > 16:
+                _scratch.clear()
+            scratch = _scratch[key] = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        return scratch
 
 
 def _launch(args, level_window, scratch=None):
@@ -285,13 +323,7 @@ def _launch(args, level_window, scratch=None):
     # .cuda_stream, without building a Stream object)
     stream = torch._C._cuda_getCurrentRawStream(index)
     if scratch is None:
-        key = (index, stream, n, m)
-        scratch = _scratch.get(key)
-        if scratch is None:
-            if len(_scratch) > 16:
-                _scratch.clear()
-            scratch = _scratch[key] = torch.empty(_layout(n, m)[0], dtype=torch.uint8,
-                                                  device=dev)
+        scratch = _scratch_buffer(dev, stream, n, m)
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
     idx, best, second = out[0].view(torch.int32), out[1], out[2]
     base = out.data_ptr()
@@ -328,11 +360,19 @@ def masked_nn(desc_a, desc_b, valid_a, valid_b, uv_a=None, uv_b=None, rad2=None,
     if desc_a.device.type != "cuda":
         raise ValueError(f"masked_nn: no kernel for device {desc_a.device}")
     out = _launch(args, level_window)[0]
-    masked_nn.launches += 1
+    site = getattr(_tls, "site", None)
+    with _lock:
+        _COUNTED.launches += 1
+        if site is not None:
+            _COUNTED.by_site[site] = _COUNTED.by_site.get(site, 0) + 1
     return out
 
 
 masked_nn.launches = 0
+masked_nn.by_site = {}
+# the counts live on this function object even while a caller (a recorder
+# in a check) stands in for the module's ``masked_nn``
+_COUNTED = masked_nn
 
 
 def masked_nn_tiles(desc_a, desc_b, valid_a, valid_b, uv_a, uv_b, rad2, levels_a,

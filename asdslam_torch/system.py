@@ -1,20 +1,22 @@
-"""System facade: wires extractor, tracker and local mapper.
+"""System facade: wires extractor, tracker, local mapper, (loop closer).
 
 Port of ``asdslam_tpu/system.py`` (mirror of src/vslam/src/System.cc —
-construction 112-144, TrackMonocular 146-150, trajectory export 446-541) for
-the synchronous mode:
+construction 112-144, TrackMonocular 146-150, trajectory export 446-541):
 
-    cfg = SlamConfig().replace(pipelined_tracking=False, async_mapping=False)
-    slam = System(cfg, asdnet_params=load_weights("asdnet_weights.pkl"))
+    slam = System(SlamConfig(), asdnet_params=load_weights("asdnet_weights.pkl"),
+                  do_loop_closing=True)
     for i, img in enumerate(frames):
-        pose = slam.track_monocular(img, i)
+        pose = slam.track_monocular(img, i)   # may lag one frame (pipelined)
+    slam.finish()                             # drains the deferred frame, joins the worker
 
-It runs on ``device`` ("cuda" unless the caller says otherwise).  What is not
-ported yet raises ``NotImplementedError`` by its ROADMAP name, at
-construction where that can be known there: the pipelined and asynchronous
-modes, loop closing, localization mode, the ORB descriptor, lens
-undistortion; map persistence, the plain-text result dump and the debug
-image when called.
+``SlamConfig()``'s defaults run the pipelined tracker and the asynchronous
+mapping worker; ``cfg.replace(pipelined_tracking=False,
+async_mapping=False)`` gives the synchronous mode.  It runs on ``device``
+("cuda" unless the caller says otherwise).  What is not ported yet raises
+``NotImplementedError`` by its ROADMAP name, at construction where that can
+be known there: localization mode, the ORB descriptor, lens undistortion,
+the multi-device global BA; map persistence, the plain-text result dump and
+the debug image when called.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from asdslam_torch.backend.local_mapping import LocalMapper
 from asdslam_torch.config import SlamConfig
 from asdslam_torch.frontend import extractor as extractor_mod
 from asdslam_torch.frontend.tracking import Tracker, _apply_delta_host, _np_mat_to_quat
+from asdslam_torch.loop.loop_closing import LoopCloser
 from asdslam_torch.mapping.map_store import MapStore, _pose_np
 from asdslam_torch.models import asdnet
 from asdslam_torch.utils.tracing import Tracer
@@ -46,13 +49,6 @@ class System:
         or the reference's params dict (lists under "conv", "bn_mean",
         "bn_var"); None gives the seeded random weights.  descriptor_fn
         replaces the network: (patches [N, 32, 32]) -> [N, 128]."""
-        if cfg.pipelined_tracking or cfg.async_mapping:
-            raise _not_ported(
-                "pipelined tracking / asynchronous mapping (pass "
-                "cfg.replace(pipelined_tracking=False, async_mapping=False))",
-                "the pipelined and asynchronous modes")
-        if do_loop_closing:
-            raise _not_ported("loop closing", "loop closure")
         if localization_mode:
             raise _not_ported("localization mode", "localization mode")
         if descriptor_fn is None and cfg.use_orb:
@@ -79,6 +75,8 @@ class System:
         self.store = MapStore(cfg.max_keyframes, cfg.max_map_points,
                               cfg.n_features, cfg.max_obs_per_point)
         self.loop_closer = None
+        if do_loop_closing:
+            self.loop_closer = LoopCloser(cfg, self.K, self.store, device=self.device)
         self.local_mapper = LocalMapper(cfg, self.K, self.store, self.loop_closer,
                                         device=self.device)
         self.tracker = Tracker(cfg, self.K, self.extract, self.store,
@@ -87,6 +85,8 @@ class System:
         self.tracer = Tracer()
         self.tracker.tracer = self.tracer
         self.local_mapper.tracer = self.tracer
+        if self.loop_closer is not None:
+            self.loop_closer.tracer = self.tracer
 
     @torch.no_grad()
     def track_monocular(self, image, frame_id: int) -> Optional[np.ndarray]:
@@ -100,9 +100,9 @@ class System:
             return self.tracker.process(img, frame_id)
 
     def finish(self):
-        """Drain the tracker (nothing is deferred in synchronous mode).
-        Idempotent; called by the trajectory accessors so results are always
-        complete."""
+        """Drain the pipelined tracker (deferred frame + outstanding
+        asynchronous mapping).  Idempotent; called by the trajectory
+        accessors so results are always complete."""
         self.tracker.flush()
 
     # ------------------------------------------------------------------ #
@@ -184,6 +184,9 @@ class System:
         raise _not_ported("save_debug_image", "the debug overlay")
 
     def stats(self):
+        # deliberately does NOT flush the pipeline: it is called from
+        # per-frame progress prints, and a flush there would break the
+        # dispatch-ahead overlap.  Counts may lag by one frame.
         s = self.store
         return {
             "n_keyframes": int(s.kf_valid.sum()),

@@ -21,6 +21,9 @@ MODULES = (
     "mapping/map_store.py", "backend/mapping_kernels.py", "backend/local_mapping.py",
     "frontend/tracking.py", "utils/tracing.py", "utils/evaluate.py",
     "models/patch_descriptor.py", "system.py",
+    # the default configuration: loop closure and its vocabulary
+    "geometry/sim3.py", "estimators/sim3_horn.py", "loop/vocab.py", "loop/keyframe_db.py",
+    "backend/pose_graph.py", "backend/global_ba.py", "loop/loop_closing.py",
 )
 
 

@@ -301,21 +301,37 @@ def test_staged_tracking_and_relocalization(sequence, jax_run, port_replay_run):
 # --------------------------------------------------------------------------- #
 # (d) the paths that wait
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("case", ["pipelined", "async", "defaults", "loop_closing",
-                                  "localization", "orb", "distortion"])
+@pytest.mark.parametrize("case", ["localization", "orb", "distortion", "mesh_global_ba"])
 def test_unported_construction_raises(case):
+    sync = TConfig(**SMALL)
+    cfg, kw = {
+        "localization": (sync, dict(localization_mode=True)),
+        "orb": (sync.replace(use_orb=True), {}),
+        "distortion": (sync.replace(dist_coeffs=(-0.28, 0.07, 0.0, 0.0, 0.0)), {}),
+        "mesh_global_ba": (sync.replace(n_devices=2), dict(do_loop_closing=True)),
+    }[case]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TSystem(cfg, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("case", ["pipelined", "async", "defaults", "loop_closing"])
+def test_ported_modes_construct(case):
+    """The modes that are ported build: the config's defaults (pipelined
+    tracking, asynchronous mapping) and loop closing, whose closer the
+    mapper runs and the tracker's relocalization reads."""
     sync = TConfig(**SMALL)
     cfg, kw = {
         "pipelined": (sync.replace(pipelined_tracking=True), {}),
         "async": (sync.replace(async_mapping=True), {}),
-        "defaults": (TConfig(), {}),
+        "defaults": (TConfig(), dict(do_loop_closing=True)),
         "loop_closing": (sync, dict(do_loop_closing=True)),
-        "localization": (sync, dict(localization_mode=True)),
-        "orb": (sync.replace(use_orb=True), {}),
-        "distortion": (sync.replace(dist_coeffs=(-0.28, 0.07, 0.0, 0.0, 0.0)), {}),
     }[case]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TSystem(cfg, device="cpu", **kw)
+    system = TSystem(cfg, descriptor_fn=tpatch.apply, device="cpu", **kw)
+    assert system.tracker.cfg is cfg
+    if kw:
+        assert system.local_mapper.loop_closer is system.loop_closer is not None
+        assert system.loop_closer.tracer is system.tracer
+    assert system.tracker._map_stream is None  # a CUDA stream only on a card
 
 
 @pytest.mark.parametrize("method,args", [("save_map", ("x.map",)), ("load_map", ("x.map",)),
@@ -332,13 +348,16 @@ def test_tracker_and_mapper_refuse_what_waits():
     store = TStore(4, 16, cfg.n_features)
     K = np.eye(3, dtype=np.float32)
     with pytest.raises(NotImplementedError):
-        TTracker(cfg.replace(async_mapping=True), K, None, store, device="cpu")
-    with pytest.raises(NotImplementedError):
         TTracker(cfg, K, None, store, localization_only=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TLocalMapper(cfg, K, store, loop_closer=object(), device="cpu")
-    tracker = TTracker(cfg, K, None, store, device="cpu")
+    # what is ported builds: the asynchronous tracker, a mapper with a loop
+    # closer
+    tracker = TTracker(cfg.replace(async_mapping=True, pipelined_tracking=True), K, None,
+                       store, device="cpu")
+    closer = object()
+    assert TLocalMapper(cfg, K, store, loop_closer=closer, device="cpu").loop_closer is closer
+    # with nothing pending and no worker, flush and join do nothing
     assert tracker.flush() is None and tracker._join_mapping() is None
+    assert tracker._pend is None and tracker._map_thread is None
 
 
 def test_config_keeps_the_reference_fields():
