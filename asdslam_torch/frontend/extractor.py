@@ -16,6 +16,7 @@ from typing import List, NamedTuple
 import torch
 
 from asdslam_torch.config import SlamConfig
+from asdslam_torch.geometry import camera as camera_mod
 from asdslam_torch.ops import fast, patches, pyramid
 
 
@@ -94,3 +95,16 @@ def make_extractor(cfg: SlamConfig, descriptor_fn):
         )
 
     return extract
+
+
+def with_undistortion(extract_fn, cam):
+    """Wrap an extractor to fill uv_und through the camera model
+    (Frame.cc:298-328): the radtan inverse of ``uv`` on valid rows, ``uv``
+    elsewhere.  ``cam`` (geometry/camera.py) lives on the extractor's device:
+    the wrapper uploads nothing and reads nothing back."""
+    def run(image):
+        f = extract_fn(image)
+        und = camera_mod.undistort_points(cam, f.uv)
+        return f._replace(uv_und=torch.where(f.valid[:, None], und, f.uv))
+
+    return run

@@ -1,9 +1,9 @@
 """Synthetic textured-corridor sequence renderer.
 
-Port of the distortion-free path of ``asdslam_tpu/io/synthetic.py``: a box
-corridor (floor, ceiling, two walls) with piecewise-constant hashed block
-textures, ray-cast per pixel from ground-truth camera poses.  It lets the
-port make frames, and exact trajectories, without any dataset or JAX.
+Port of ``asdslam_tpu/io/synthetic.py``: a box corridor (floor, ceiling,
+two walls) with piecewise-constant hashed block textures, ray-cast per pixel
+from ground-truth camera poses, optionally through a radtan lens.  It lets
+the port make frames, and exact trajectories, without any dataset or JAX.
 
 The texture hash is uint32 arithmetic in the reference; torch has no uint32
 multiply, so it runs in int64, reduced to 32 bits after every multiply, and
@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from asdslam_torch.geometry import camera as camera_mod
 from asdslam_torch.geometry import se3
 
 _M32 = 0xFFFFFFFF
@@ -63,9 +64,15 @@ def _plane_texture(a, b, scale, salt):
     return 0.25 + 0.5 * (0.65 * v + 0.35 * v2)
 
 
-def render_frame(pose7, K, height: int, width: int, scene: Scene = Scene()):
+def render_frame(pose7, K, height: int, width: int, scene: Scene = Scene(),
+                 dist: tuple = None):
     """Render one [H, W] grayscale frame in [0, 1] from camera pose T_cw, on
-    the pose's device."""
+    the pose's device.
+
+    dist: optional radtan (k1, k2, p1, p2): renders the scene as seen
+    through a distorting lens.  Pixel (u, v) carries DISTORTED normalized
+    coords, so the true ray direction is their radtan inverse (what
+    cv::undistortPoints would recover)."""
     dev = pose7.device
     K = torch.as_tensor(K, dtype=torch.float32).to(dev)
     R, t = se3.pose_unpack(pose7)
@@ -75,6 +82,10 @@ def render_frame(pose7, K, height: int, width: int, scene: Scene = Scene()):
                           indexing="ij")
     xn = (u - K[0, 2]) / K[0, 0]
     yn = (v - K[1, 2]) / K[1, 1]
+    if dist is not None and any(abs(k) > 1e-12 for k in dist):
+        cam = camera_mod.Camera.create(1.0, 1.0, 0.0, 0.0, *dist, device=dev)
+        und = camera_mod.undistort_normalized(cam, torch.stack([xn, yn], dim=-1))
+        xn, yn = und[..., 0], und[..., 1]
     d_cam = torch.stack([xn, yn, torch.ones_like(xn)], dim=-1)
     d = d_cam @ R  # world ray directions (R^T d_cam)
     t_hit, which = _ray_hits(c, d, scene)
@@ -161,8 +172,10 @@ def make_trajectory(n_frames: int, step: float = 0.25, turn: float = 0.0,
 
 def render_sequence(K, n_frames: int, height: int, width: int,
                     step: float = 0.25, turn: float = 0.0, scene: Scene = Scene(),
-                    device="cuda"):
-    """(frames [n, H, W] in [0, 1], poses [n, 7]) on ``device``."""
+                    dist: tuple = None, device="cuda"):
+    """(frames [n, H, W] in [0, 1], poses [n, 7]) on ``device``; ``dist`` as
+    in ``render_frame``."""
     poses = make_trajectory(n_frames, step, turn, device=device)
-    frames = [render_frame(poses[i], K, height, width, scene) for i in range(n_frames)]
+    frames = [render_frame(poses[i], K, height, width, scene, dist=dist)
+              for i in range(n_frames)]
     return torch.stack(frames), poses

@@ -12,11 +12,18 @@ construction 112-144, TrackMonocular 146-150, trajectory export 446-541):
 ``SlamConfig()``'s defaults run the pipelined tracker and the asynchronous
 mapping worker; ``cfg.replace(pipelined_tracking=False,
 async_mapping=False)`` gives the synchronous mode.  It runs on ``device``
-("cuda" unless the caller says otherwise).  What is not ported yet raises
-``NotImplementedError`` by its ROADMAP name, at construction where that can
-be known there: localization mode, the ORB descriptor, lens undistortion,
-the multi-device global BA; map persistence, the plain-text result dump and
-the debug image when called.
+("cuda" unless the caller says otherwise).  A camera with lens distortion
+(``cfg.dist_coeffs``, e.g. from ``io/datasets.py::read_cam_info``)
+undistorts keypoints at extraction.  A map is saved and loaded as a binary
+``.map`` file; localization mode tracks against a loaded map:
+
+    slam.save_map("run.map")
+    loc = System(cfg, asdnet_params=..., localization_mode=True)
+    loc.load_map("run.map")        # then track_monocular as above
+
+What is not ported yet raises ``NotImplementedError`` by its ROADMAP name:
+the ORB descriptor and the multi-device global BA at construction, the
+debug image when called.
 """
 
 from __future__ import annotations
@@ -30,7 +37,10 @@ from asdslam_torch.backend.local_mapping import LocalMapper
 from asdslam_torch.config import SlamConfig
 from asdslam_torch.frontend import extractor as extractor_mod
 from asdslam_torch.frontend.tracking import Tracker, _apply_delta_host, _np_mat_to_quat
+from asdslam_torch.geometry import camera as camera_mod
+from asdslam_torch.io import results
 from asdslam_torch.loop.loop_closing import LoopCloser
+from asdslam_torch.mapping import persistence
 from asdslam_torch.mapping.map_store import MapStore, _pose_np
 from asdslam_torch.models import asdnet
 from asdslam_torch.utils.tracing import Tracer
@@ -48,13 +58,19 @@ class System:
         """asdnet_params: an ``ASDNet`` state dict (``asdnet.load_weights``)
         or the reference's params dict (lists under "conv", "bn_mean",
         "bn_var"); None gives the seeded random weights.  descriptor_fn
-        replaces the network: (patches [N, 32, 32]) -> [N, 128]."""
-        if localization_mode:
-            raise _not_ported("localization mode", "localization mode")
+        replaces the network: (patches [N, 32, 32]) -> [N, 128].
+
+        localization_mode: track against a prior map (``load_map``) without
+        extending it, unless ``cfg.loc_extend_map`` (System(loop_for_loc) /
+        TrackLocalization parity)."""
         if descriptor_fn is None and cfg.use_orb:
-            raise _not_ported("the ORB descriptor (cfg.use_orb)", "ORB")
-        if cfg.has_distortion:
-            raise _not_ported("lens undistortion (cfg.has_distortion)", "undistortion")
+            # the reference's own use_orb System fails too: its store keeps
+            # 128-wide descriptors (asdslam_tpu/mapping/map_store.py:76), the
+            # ORB descriptor is 256 wide, so its first bootstrap raises at
+            # map_store.py:202
+            raise _not_ported("the ORB descriptor (cfg.use_orb; the reference's use_orb "
+                              "System fails on 256-wide descriptors in a 128-wide store)",
+                              "ORB")
         self.localization_mode = localization_mode
         self.cfg = cfg
         self.device = torch.device(device)
@@ -71,12 +87,20 @@ class System:
             self.asdnet = net.to(self.device)
             descriptor_fn = self.asdnet
         self.extract = extractor_mod.make_extractor(cfg, descriptor_fn)
+        if cfg.has_distortion:
+            # undistort keypoints at extraction (Frame::UndistortKeyPoints,
+            # Frame.cc:298-328); downstream projection stays pinhole on
+            # uv_und like the reference (EuRoC's radtan camera needs this)
+            cam = camera_mod.Camera.create(cfg.fx, cfg.fy, cfg.cx, cfg.cy,
+                                           *cfg.dist_coeffs, device=self.device)
+            self.extract = extractor_mod.with_undistortion(self.extract, cam)
 
         self.store = MapStore(cfg.max_keyframes, cfg.max_map_points,
                               cfg.n_features, cfg.max_obs_per_point)
         self.loop_closer = None
-        if do_loop_closing:
+        if do_loop_closing or localization_mode:
             self.loop_closer = LoopCloser(cfg, self.K, self.store, device=self.device)
+            self.loop_closer.only_global_map = localization_mode
         self.local_mapper = LocalMapper(cfg, self.K, self.store, self.loop_closer,
                                         device=self.device)
         self.tracker = Tracker(cfg, self.K, self.extract, self.store,
@@ -172,13 +196,37 @@ class System:
         self._write_tum(path, self.keyframe_trajectory(), timestamps)
 
     def save_map(self, path: str):
-        raise _not_ported("save_map", "persistence")
+        """Binary .map checkpoint (visual_map format parity — System.cc:437)."""
+        self.finish()
+        data = persistence.export_map(self.store, self.cfg,
+                                      self.cfg.covis_weight_posegraph)
+        persistence.save_visual_map(data, path)
 
     def load_map(self, path: str):
-        raise _not_ported("load_map", "persistence")
+        """Load a .map into the (empty) store — System::LoadORBMap.  In
+        localization mode also builds the relocalization BoW database."""
+        data = persistence.load_visual_map(path)
+        persistence.import_map(data, self.store,
+                               np.asarray(self.cfg.scale_factors, np.float32),
+                               device=self.device)
+        if self.localization_mode and self.loop_closer is not None:
+            lc = self.loop_closer
+            if lc.vocab is None:
+                # no offline vocabulary supplied: train one from the loaded
+                # map's own descriptors
+                lc.pending = list(range(self.store.n_kf))
+                lc._train_vocab()
+            else:
+                # offline vocabulary (train_vocab.py / --voc_addr): index the
+                # prior map's keyframes under it
+                for kf in range(self.store.n_kf):
+                    lc._add_kf_bow(kf)
+                    lc.db.add(kf, lc.kf_bow[kf])
 
     def save_result(self, out_dir: str, filenames=None):
-        raise _not_ported("save_result", "persistence")
+        """Plain-text map dump (track/desc/kps/posi/traj.txt) —
+        System::saveResult parity (System.cc:548-661)."""
+        results.save_result(self.store, out_dir, filenames)
 
     def save_debug_image(self, path: str, image=None):
         raise _not_ported("save_debug_image", "the debug overlay")

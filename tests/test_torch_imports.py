@@ -24,6 +24,9 @@ MODULES = (
     # the default configuration: loop closure and its vocabulary
     "geometry/sim3.py", "estimators/sim3_horn.py", "loop/vocab.py", "loop/keyframe_db.py",
     "backend/pose_graph.py", "backend/global_ba.py", "loop/loop_closing.py",
+    # localization mode, persistence and the radtan lens
+    "geometry/camera.py", "geometry/camera_models.py", "io/synthetic.py", "io/datasets.py",
+    "io/results.py", "mapping/persistence.py",
 )
 
 
