@@ -27,7 +27,7 @@ class Camera(NamedTuple):
     p2: torch.Tensor
 
     @staticmethod
-    def create(fx, fy, cx, cy, k1=0.0, k2=0.0, p1=0.0, p2=0.0, *, device="cpu"):
+    def create(fx, fy, cx, cy, k1=0.0, k2=0.0, p1=0.0, p2=0.0, *, device="cuda"):
         def f(v):
             return torch.tensor(float(v), dtype=torch.float32, device=device)
         return Camera(f(fx), f(fy), f(cx), f(cy), f(k1), f(k2), f(p1), f(p2))

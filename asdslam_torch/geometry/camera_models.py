@@ -39,7 +39,7 @@ class EquidistantDistortion(NamedTuple):
     k4: torch.Tensor
 
     @staticmethod
-    def create(k1=0.0, k2=0.0, k3=0.0, k4=0.0, *, device="cpu"):
+    def create(k1=0.0, k2=0.0, k3=0.0, k4=0.0, *, device="cuda"):
         return EquidistantDistortion(*(_f32(v, device) for v in (k1, k2, k3, k4)))
 
 
@@ -81,7 +81,7 @@ class FisheyeDistortion(NamedTuple):
     w: torch.Tensor
 
     @staticmethod
-    def create(w=0.8, *, device="cpu"):
+    def create(w=0.8, *, device="cuda"):
         return FisheyeDistortion(_f32(w, device))
 
 
@@ -110,7 +110,7 @@ class UnifiedCamera(NamedTuple):
     cy: torch.Tensor
 
     @staticmethod
-    def create(xi, fx, fy, cx, cy, *, device="cpu"):
+    def create(xi, fx, fy, cx, cy, *, device="cuda"):
         return UnifiedCamera(*(_f32(v, device) for v in (xi, fx, fy, cx, cy)))
 
 

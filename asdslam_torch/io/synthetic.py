@@ -41,9 +41,13 @@ def _mul32(h, c: int):
     return (lo + hi) & _M32
 
 
-def _hash01(ix, iy, salt: int):
+def _hash01(ix, iy, salt):
+    """Block texture value in [0, 1] of integer cells (ix, iy) held in int64.
+    ``salt`` is a Python int or an integer tensor that broadcasts with them
+    (one salt per pixel); like the cells it is taken mod 2^32, as the
+    reference's uint32 cast of its int32 values wraps."""
     h = (_mul32(ix & _M32, 73856093) ^ _mul32(iy & _M32, 19349663)
-         ^ ((salt * 83492791) & _M32))
+         ^ _mul32(salt & _M32, 83492791))
     h = _mul32(h, 2654435761)
     h = h ^ (h >> 13)
     h = _mul32(h, 2246822519)

@@ -68,7 +68,7 @@ class LoopCloser:
         if cfg.n_devices > 1:
             raise NotImplementedError(
                 "the multi-device global BA (cfg.n_devices > 1) is not ported yet "
-                "(ROADMAP: parallel/)")
+                "(ROADMAP: parallel/, Queue 1 item 19)")
         self.cfg = cfg
         self.device = torch.device(device)
         self.K = torch.as_tensor(K, dtype=torch.float32).to(self.device)

@@ -262,7 +262,7 @@ def export_map(store: MapStore, cfg, min_posegraph_weight: int = 30) -> VisualMa
 
 
 def import_map(data: VisualMapData, store: MapStore, scale_factors,
-               global_map_flag: bool = True, device="cpu"):
+               global_map_flag: bool = True, device="cuda"):
     """System::LoadORBMap semantics: rebuild keyframes + map points +
     observations, recompute distinctive descriptors and normals
     (System.cc:38-110).  Each keyframe's features are uploaded once, to

@@ -52,6 +52,16 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
 
 
+def require_device(name: str) -> torch.device:
+    """The device a command-line entry point runs on: "cuda" (the scripts'
+    default) or "cpu" where the caller asks for it.  Where "cuda" is asked
+    for and there is no card it exits with a message: it never falls back
+    to the CPU."""
+    if name == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
+    return torch.device(name)
+
+
 class System:
     def __init__(self, cfg: SlamConfig, asdnet_params=None, do_loop_closing: bool = False,
                  descriptor_fn=None, localization_mode: bool = False, device="cuda"):
@@ -70,7 +80,7 @@ class System:
             # map_store.py:202
             raise _not_ported("the ORB descriptor (cfg.use_orb; the reference's use_orb "
                               "System fails on 256-wide descriptors in a 128-wide store)",
-                              "ORB")
+                              "ORB, Queue 1 item 15")
         self.localization_mode = localization_mode
         self.cfg = cfg
         self.device = torch.device(device)
@@ -229,7 +239,7 @@ class System:
         results.save_result(self.store, out_dir, filenames)
 
     def save_debug_image(self, path: str, image=None):
-        raise _not_ported("save_debug_image", "the debug overlay")
+        raise _not_ported("save_debug_image", "the debug overlay, Queue 1 item 17")
 
     def stats(self):
         # deliberately does NOT flush the pipeline: it is called from

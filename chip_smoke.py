@@ -72,13 +72,35 @@ Phases, each of which raises on failure (exit code != 0):
       default configuration with loop closing: uv_und moved off uv by more
       than 1 px, the bootstrap, the tracked share, the sim3 ATE under its
       bar, masked_nn launched from the step, clean chained dispatches;
-   and print each sub-phase's frames/s, median call and load_map time.
+   and print each sub-phase's frames/s, median call and load_map time;
+8. the port's entry points, each through its main(argv) in-process at the
+   same full widths, with masked_nn's launches counted by call site:
+   a. 30 frames of phase 5's corridor written as a KITTI layout (times.txt,
+      image_0/%06d.png, a camera file), run_slam_torch.py over it with the
+      trained ASDNet, saving the map, the online vocabulary, the result dump,
+      visualization snapshots and the profile: its JSON line, the tracked
+      share and keyframes under bars from the JAX package's run_slam.py on the
+      same directory, the trajectory file, the map reproduced byte for byte
+      by load -> save, the five result files, the snapshots;
+   b. train_vocab_torch.py on that map, the vocabulary loaded back;
+   c. run_slam_torch.py --localization on that map under that vocabulary over
+      the first 20 frames: no keyframe added, the median camera-centre
+      distance to 8a's trajectory under phase 7a's bar;
+   d. display_map_torch.py on that map with a PLY: a finite mean reprojection
+      error under its bar;
+   e. eval_euroc_proxy_torch.py --frames 40 (752x480 through EuRoC's lens,
+      loop closing on): the tracked share and the ATE under bars from the
+      JAX package's eval_euroc_proxy.py, the render span apart from
+      tracking, and masked_nn held against its plain version on one of its
+      local-map searches.
 
 Prints a `kernels` JSON line before the last line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX or of the JAX package.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -131,6 +153,22 @@ N_DISPATCH = 6                    # chained dispatches of 7a's and 7c's checks
 EUROC_CAM = ("458.654,457.296,367.215,248.375,-0.28340811,0.07395907,0.00019359,"
              "1.76187114e-05")    # EuRoC MH cam0: fx, fy, cx, cy, k1, k2, p1, p2
 EUROC_W, EUROC_H = 752, 480
+# Phase 8: the entry points.  8a: N_ENTRY frames of phase 5's corridor as a
+# KITTI-layout directory; 8c: localization over its first N_ENTRY_LOC frames;
+# 8e: the EuRoC proxy's first N_EUROC frames.
+N_ENTRY, N_ENTRY_LOC, N_EUROC = 30, 20, 40
+# The JAX package's scripts on the same inputs, on a CPU (python
+# tests/test_torch_cli.py --reference-phase8): run_slam.py tracks 26 of the 30
+# frames with 5 keyframes and 1067 points; in localization mode on its map 18
+# of 20 frames; display_map.py on that map 0.76 px; eval_euroc_proxy.py
+# --frames 40 tracks 37 with 4 keyframes, sim3 ATE 0.021 m.  The port is held
+# to 70% tracked and 3-10 keyframes (8a), 2 px (8d), 75% tracked and the ATE
+# bar of tests/test_euroc_proxy.py, 0.15 m (8e); 8c to phase 7a's bar.
+REF_ENTRY = dict(run_slam=dict(tracked=26, keyframes=5, map_points=1067),
+                 localization=dict(tracked=18, keyframes=5), display_map=0.76)
+REF_EUROC = dict(tracked=37, keyframes=4, ate_m=0.021)
+ENTRY_TRACKED_BAR, ENTRY_KF_RANGE, ENTRY_REPROJ_BAR = 0.7, (3, 10), 2.0
+EUROC_TRACKED_BAR, EUROC_ATE_BAR = 0.75, max(2 * REF_EUROC["ate_m"], 0.15)
 
 
 def log(*a):
@@ -305,6 +343,16 @@ def check_k1(case, args, ratio=0.8, max_dist=1.2, best_tol=5e-5):
         f"gated-in rows {int(gated_in.sum())}, gated-in pairs {pairs_in}, live tile pairs "
         f"{share:.4f}, max|d best| {err:.3g}, max|d second| {serr:.3g}, two runs bitwise equal")
     return max(err, serr), pairs_in, share
+
+
+def k1_full_args(args):
+    """masked_nn's ten arguments from a call's ``args``, the optional inputs
+    filled as the wrapper fills them."""
+    from asdslam_torch.ops import masked_nn as k1
+
+    a = list(args) + [(-1e9, 1e9)] * (10 - len(args))
+    a[4:9] = k1._defaults(a[0], a[1], *a[4:9])
+    return tuple(a)
 
 
 def k1_bound_ms(args, pairs_in):
@@ -694,10 +742,7 @@ def run_default(cfg, frames_u8, weights, device, record=False):
     def recorder(*args):
         site = getattr(k1._tls, "site", None)
         if site in recorded and len(recorded[site]) < 4:
-            # the optional inputs filled as the wrapper fills them
-            a = list(args) + [(-1e9, 1e9)] * (10 - len(args))
-            a[4:9] = k1._defaults(a[0], a[1], *a[4:9])
-            recorded[site].append(tuple(a))
+            recorded[site].append(k1_full_args(args))
         return real_nn(*args)
 
     poses, ms, is_kf = [], [], []
@@ -867,15 +912,16 @@ def phase6(cfg, weights, device, card, errs, k1_cases):
 # --------------------------------------------------------------------------- #
 # Phase 7: localization mode on a saved map, loc_extend_map, EuRoC's lens
 # --------------------------------------------------------------------------- #
-def drive(system, frames_u8, ids):
-    """Track frames ``ids`` through system.track_monocular, then finish().
-    masked_nn's launches are counted from zero just before and read just
-    after, by call site: the fused step ("step", both its dispatch and its
-    synchronous use), relocalization ("reloc"), the keyframe fuse ("fuse"),
-    and the rest ("other": the staged searches, the loop closer's).  Returns
-    the returned poses, each call's host ms, the wall time and the counts."""
-    import torch
+@contextlib.contextmanager
+def k1_sites():
+    """Count masked_nn's launches inside the block by call site, from zero:
+    the fused step ("step", both its dispatch and its synchronous use),
+    relocalization ("reloc"), the keyframe fuse ("fuse"), and the rest
+    ("other": the staged searches, the loop closer's).  Yields a dict that
+    holds "launches" and "by_site" when the block ends; every Tracker built
+    inside the block is counted."""
     from asdslam_torch.backend import mapping_kernels
+    from asdslam_torch.frontend.tracking import Tracker
     from asdslam_torch.ops import masked_nn as k1
 
     def labelled(fn, site):
@@ -884,16 +930,32 @@ def drive(system, frames_u8, ids):
                 return fn(*a, **kw)
         return wrapper
 
-    tr = system.tracker
-    for name, site in (("_dispatch_fused", "step"), ("_try_fused", "step"),
-                       ("_relocalize", "reloc")):
-        setattr(tr, name, labelled(getattr(tr, name), site))
-    real_fuse = mapping_kernels.fuse_pairs
-    mapping_kernels.fuse_pairs = labelled(real_fuse, "fuse")
+    patched = [(Tracker, name, getattr(Tracker, name), site)
+               for name, site in (("_dispatch_fused", "step"), ("_try_fused", "step"),
+                                  ("_relocalize", "reloc"))]
+    patched.append((mapping_kernels, "fuse_pairs", mapping_kernels.fuse_pairs, "fuse"))
+    for owner, name, fn, site in patched:
+        setattr(owner, name, labelled(fn, site))
+    out, counted = {}, k1._COUNTED  # the wrapper's counts, whatever stands in for it
+    counted.launches, counted.by_site = 0, {}
+    try:
+        yield out
+    finally:
+        for owner, name, fn, _ in patched:
+            setattr(owner, name, fn)
+    out["launches"], out["by_site"] = counted.launches, dict(counted.by_site)
+    out["by_site"]["other"] = out["launches"] - sum(out["by_site"].values())
+
+
+def drive(system, frames_u8, ids):
+    """Track frames ``ids`` through system.track_monocular, then finish(),
+    with masked_nn's launches counted by call site (``k1_sites``).  Returns
+    the returned poses, each call's host ms, the wall time and the counts."""
+    import torch
+
     poses, ms = [], []
     torch.cuda.synchronize()
-    k1.masked_nn.launches, k1.masked_nn.by_site = 0, {}
-    try:
+    with k1_sites() as counts:
         t_start = time.perf_counter()
         for i in ids:
             t0 = time.perf_counter()
@@ -902,11 +964,7 @@ def drive(system, frames_u8, ids):
         system.finish()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t_start
-    finally:
-        mapping_kernels.fuse_pairs = real_fuse
-    launches, by_site = k1.masked_nn.launches, dict(k1.masked_nn.by_site)
-    by_site["other"] = launches - sum(by_site.values())
-    return dict(poses=poses, ms=np.array(ms), wall_s=wall, launches=launches, by_site=by_site)
+    return dict(poses=poses, ms=np.array(ms), wall_s=wall, **counts)
 
 
 def load_localization(cfg, path, weights, device):
@@ -941,6 +999,58 @@ def check_finite(system, run):
         raise AssertionError("non-finite map point or keyframe pose")
 
 
+def reloc_stages(tracker, feat, match_mod, pnp_mod):
+    """``tracker._relocalize(feat)`` with each candidate keyframe's fate
+    recorded: the global search's matches, the PnP RANSAC's verdict and
+    inliers, the pose-only BA's inliers, the widening searches' new
+    bindings, and the stage that rejected it ("matches": too few matches to
+    map points, "pnp", "pose-only BA", "inliers": under reloc_min_inliers
+    after any widening; None: accepted).  Works on either package's Tracker:
+    pass the modules it calls (ops/match.py and estimators/pnp.py).
+    Returns (accepted, the candidates' records)."""
+    def host(x):
+        return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+
+    cands = []
+    real = (match_mod.search_global, pnp_mod.ransac_pnp)
+
+    def search(*a, **kw):
+        out = real[0](*a, **kw)
+        cands.append(dict(matches=int(host(out[2]).sum()), stage="matches"))
+        return out
+
+    def pnp(*a, **kw):
+        res = real[1](*a, **kw)
+        c = cands[-1]
+        c.update(pnp=bool(host(res.success)), pnp_inliers=int(host(res.n_inliers)),
+                 stage="pnp")
+        return res
+
+    def optimize(*a, **kw):
+        ok = type(tracker)._optimize_current(tracker, *a, **kw)
+        c = cands[-1]
+        c.setdefault("ba_inliers", []).append(int(tracker.n_inliers) if ok else None)
+        if "widened" not in c:
+            c["stage"] = "inliers" if ok else "pose-only BA"
+        return ok
+
+    def widen(*a, **kw):
+        n = type(tracker)._reloc_widen(tracker, *a, **kw)
+        cands[-1].setdefault("widened", []).append(int(n))
+        return n
+
+    match_mod.search_global, pnp_mod.ransac_pnp = search, pnp
+    tracker._optimize_current, tracker._reloc_widen = optimize, widen
+    try:
+        accepted = tracker._relocalize(feat)
+    finally:
+        match_mod.search_global, pnp_mod.ransac_pnp = real
+        del tracker._optimize_current, tracker._reloc_widen
+    if accepted:
+        cands[-1]["stage"] = None
+    return accepted, cands
+
+
 def reloc_acceptance(system, frames_u8, device):
     """Relocalization on the card (tests/test_localization_mode.py::
     TestRelocAcceptance): the rich map accepted with >= reloc_min_inliers;
@@ -948,11 +1058,14 @@ def reloc_acceptance(system, frames_u8, device):
     candidate with fewer than 50 inliers gets) run from the pose it found,
     against the keyframe whose points it bound most, with masked_nn's
     arguments recorded; then a thin map (40 of keyframe 0's points)
-    rejected.  Returns (the rich run's inliers, the widening's new bindings
-    and masked_nn launches, the thin run's launches, the recorded
-    arguments).  Leaves the store thinned."""
+    rejected, with the stage that rejected each candidate recorded
+    (``reloc_stages``).  Returns (the rich run's inliers, the widening's new
+    bindings and masked_nn launches, the thin run's launches, the recorded
+    arguments, the thin run's candidates).  Leaves the store thinned."""
     import torch
+    from asdslam_torch.estimators import pnp
     from asdslam_torch.ops import masked_nn as k1
+    from asdslam_torch.ops import match
 
     tr, store = system.tracker, system.store
     feat = tr.extract(torch.as_tensor(frames_u8[5]).to(device).float() / 255.0)
@@ -964,9 +1077,7 @@ def reloc_acceptance(system, frames_u8, device):
     calls, real_nn = [], k1.masked_nn
 
     def recorder(*args):
-        a = list(args) + [(-1e9, 1e9)] * (10 - len(args))
-        a[4:9] = k1._defaults(a[0], a[1], *a[4:9])
-        calls.append(tuple(a))
+        calls.append(k1_full_args(args))
         return real_nn(*args)
 
     torch.cuda.synchronize()
@@ -987,9 +1098,10 @@ def reloc_acceptance(system, frames_u8, device):
     store.mp_valid[:] = mask
     tr.n_inliers = 0
     real_nn.launches = 0
-    if tr._relocalize(feat):
+    accepted, stages = reloc_stages(tr, feat, match, pnp)
+    if accepted:
         raise AssertionError(f"a thin map of 40 points relocalized ({tr.n_inliers} inliers)")
-    return rich, int(added), widen_launches, real_nn.launches, calls
+    return rich, int(added), widen_launches, real_nn.launches, calls, stages
 
 
 def phase7(cfg, mapped, frames_u8, weights, device, card, errs, k1_cases):
@@ -1043,7 +1155,7 @@ def phase7(cfg, mapped, frames_u8, weights, device, card, errs, k1_cases):
             raise AssertionError(f"masked_nn was not launched from the step: {run_a['by_site']}")
         check_dispatch_no_sync(loc, ext_u8, N_SYSTEM, N_DISPATCH)
         loc_stats = loc.stats()
-        rich, added, widen_launches, thin_launches, calls = reloc_acceptance(
+        rich, added, widen_launches, thin_launches, calls, thin = reloc_acceptance(
             loc, frames_u8, device)
         args = max(calls, key=lambda a: int(a[2].sum()))  # most live rows
         err, pairs_in, share = check_k1("relocalization search", args, best_tol=1e-6)
@@ -1054,7 +1166,8 @@ def phase7(cfg, mapped, frames_u8, weights, device, card, errs, k1_cases):
                          save_ms=save_ms, load_ms=load_ms, launches=run_a["launches"],
                          by_site=run_a["by_site"], reloc_rich_inliers=rich,
                          reloc_widen_added=added, reloc_widen_launches=widen_launches,
-                         reloc_thin_launches=thin_launches, fps=N_SYSTEM / run_a["wall_s"],
+                         reloc_thin_launches=thin_launches, reloc_thin_candidates=thin,
+                         fps=N_SYSTEM / run_a["wall_s"],
                          call_ms_median=float(np.median(run_a["ms"])), stats=loc_stats)
         log(f"7a localization: save_map {save_ms:.1f} ms, the file reproduced byte for byte; "
             f"load_map {load_ms:.1f} ms (vocabulary training included); {len(traj)} of "
@@ -1064,7 +1177,7 @@ def phase7(cfg, mapped, frames_u8, weights, device, card, errs, k1_cases):
             f"{run_a['by_site']}; {N_DISPATCH} chained dispatches clean under "
             f"set_sync_debug_mode('error'); relocalization: rich map accepted with {rich} "
             f"inliers, its widening search {widen_launches} masked_nn launches ({added} new "
-            f"bindings), a thin map rejected ({thin_launches} launches)")
+            f"bindings), a thin map rejected ({thin_launches} launches; its candidates {thin})")
         # ---- 7b: loc_extend_map --------------------------------------------- #
         ext, ext_load_ms = load_localization(cfg.replace(loc_extend_map=True), path, weights,
                                              device)
@@ -1149,6 +1262,230 @@ def phase7(cfg, mapped, frames_u8, weights, device, card, errs, k1_cases):
         log(f"{name}: {o['fps']:.3f} frames/s over {o['frames']} frames, median call "
             f"{o['call_ms_median']:.1f} ms" + (f", load_map {o['load_ms']:.1f} ms"
                                                 if "load_ms" in o else "") + f" [{card}]")
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Phase 8: the port's own entry points, called in-process
+# --------------------------------------------------------------------------- #
+def png_bytes(img_u8):
+    """A [H, W] uint8 image as an 8-bit grayscale PNG (filter 0 on every row)."""
+    import struct
+    import zlib
+
+    h, w = img_u8.shape
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\x00" + img_u8[i].tobytes() for i in range(h))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def write_kitti_dir(root, frames_u8, cfg):
+    """The KITTI layout run_slam reads (times.txt, image_0/%06d.png) of
+    ``frames_u8`` at 10 Hz, and a camera file of ``cfg``'s intrinsics
+    without distortion.  Returns (the sequence directory, the camera file)."""
+    seq = os.path.join(root, "seq")
+    os.makedirs(os.path.join(seq, "image_0"), exist_ok=True)
+    with open(os.path.join(seq, "times.txt"), "w") as f:
+        f.writelines(f"{0.1 * i:e}\n" for i in range(len(frames_u8)))
+    for i, img in enumerate(frames_u8):
+        with open(os.path.join(seq, "image_0", f"{i:06d}.png"), "wb") as f:
+            f.write(png_bytes(np.asarray(img, np.uint8)))
+    cam = os.path.join(root, "cam.txt")
+    with open(cam, "w") as f:
+        f.write(f"{cfg.fx},{cfg.fy},{cfg.cx},{cfg.cy},0,0,0,0\n")
+    return seq, cam
+
+
+def run_entry(main_fn, argv):
+    """``main_fn(argv)`` with masked_nn's launches counted by call site and
+    its standard output captured.  Returns (what it returned, its output,
+    the counts, the host seconds)."""
+    import torch
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with k1_sites() as counts, contextlib.redirect_stdout(buf):
+        ret = main_fn(argv)
+        torch.cuda.synchronize()
+    return ret, buf.getvalue(), counts, time.perf_counter() - t0
+
+
+def last_json(text):
+    """The last line of ``text`` that is a JSON object."""
+    lines = [l for l in text.splitlines() if l.startswith("{")]
+    if not lines:
+        raise AssertionError(f"no JSON line in the output:\n{text[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def phase8(cfg, device, card, errs, k1_cases, euroc_scale=1.0):
+    """8a-8e (module docstring) through each script's main(argv) at
+    ``cfg``'s shape; EuRoC's proxy at ``euroc_scale``.  Adds the EuRoC proxy's
+    local-map search to ``k1_cases`` / ``errs`` and returns the numbers for
+    the JSON line, with masked_nn's launches by sub-phase and site."""
+    import tempfile
+    import torch
+    import display_map_torch
+    import eval_euroc_proxy_torch
+    import run_slam_torch
+    import train_vocab_torch
+    from asdslam_torch.io import synthetic
+    from asdslam_torch.loop import vocab as vocab_mod
+    from asdslam_torch.mapping import persistence
+    from asdslam_torch.ops import masked_nn as k1
+    from asdslam_torch.utils import evaluate
+
+    weights = os.path.join(os.path.dirname(os.path.abspath(__file__)), "asdnet_weights.pkl")
+    dev = ["--device", device]
+    out = {}
+    K = torch.tensor([[cfg.fx, 0, cfg.cx], [0, cfg.fy, cfg.cy], [0, 0, 1.0]])
+    frames, _ = synthetic.render_sequence(K, N_ENTRY, cfg.image_height, cfg.image_width,
+                                          step=STEP_M, turn=TURN, device=device)
+    frames_u8 = [(f * 255.0).clamp(0, 255).to(torch.uint8).cpu().numpy() for f in frames]
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 8a: run_slam_torch over a KITTI-layout directory ----------------- #
+        seq, cam = write_kitti_dir(tmp, frames_u8, cfg)
+        paths = {k: os.path.join(tmp, v) for k, v in (
+            ("map", "run.map"), ("voc", "online_voc.npz"), ("res", "result"), ("viz", "viz"),
+            ("traj", "traj.txt"), ("voc2", "voc.npz"), ("loc_traj", "loc_traj.txt"),
+            ("ply", "map.ply"), ("euroc", "euroc.json"))}
+        kitti = ["--dataset", "kitti", "--seq_dir", seq, "--camera_config", cam,
+                 "--asdnet_weights", weights]
+        mapped, text, run_a, sec = run_entry(run_slam_torch.main, kitti + dev + [
+            "--output_addr", paths["traj"], "--save_map", paths["map"], "--save_voc",
+            paths["voc"], "--save_result_dir", paths["res"], "--viz_dir", paths["viz"],
+            "--viz_every", "10", "--profile"])
+        line = last_json(text)
+        n_lines = sum(1 for _ in open(paths["traj"]))
+        if line["frames"] != N_ENTRY or line["tracked"] < ENTRY_TRACKED_BAR * N_ENTRY:
+            raise AssertionError(f"8a: {line} (tracked bar {ENTRY_TRACKED_BAR} of {N_ENTRY})")
+        if not ENTRY_KF_RANGE[0] <= line["keyframes"] <= ENTRY_KF_RANGE[1]:
+            raise AssertionError(f"8a: {line['keyframes']} keyframes, outside {ENTRY_KF_RANGE}")
+        if n_lines != line["keyframes"]:
+            raise AssertionError(f"8a: the trajectory file has {n_lines} lines for "
+                                 f"{line['keyframes']} keyframes")
+        again = os.path.join(tmp, "again.map")
+        persistence.save_visual_map(persistence.load_visual_map(paths["map"]), again)
+        with open(paths["map"], "rb") as fa, open(again, "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError("8a: load_visual_map -> save_visual_map changed the file")
+        res_files = {n: os.path.getsize(os.path.join(paths["res"], n + ".txt"))
+                     for n in ("traj", "track", "posi", "kps", "desc")}
+        if not all(res_files.values()):
+            raise AssertionError(f"8a: empty result files {res_files}")
+        snaps = {t: len(os.listdir(os.path.join(paths["viz"], t)))
+                 for t in ("map/trajectory", "map/points", "map/topdown", "camera/frame")
+                 if os.path.isdir(os.path.join(paths["viz"], t))}
+        if snaps.get("camera/frame") != 3 or snaps.get("map/topdown") != 3 \
+                or not snaps.get("map/points") or not snaps.get("map/trajectory"):
+            raise AssertionError(f"8a: visualization snapshots {snaps}")
+        if run_a["by_site"].get("step", 0) < 1 or run_a["by_site"].get("fuse", 0) < 1:
+            raise AssertionError(f"8a: masked_nn launches {run_a['by_site']}")
+        out["8a"] = dict(line=line, keyframes_bar=ENTRY_KF_RANGE, ref=REF_ENTRY, seconds=sec,
+                         result_bytes=res_files, viz=snaps, online_vocab=os.path.exists(
+                             paths["voc"]), launches=run_a["launches"], by_site=run_a["by_site"])
+        log(f"8a run_slam_torch.py --dataset kitti ({N_ENTRY} PNGs at {cfg.image_width}x"
+            f"{cfg.image_height}): {line}; {n_lines} trajectory lines; the map reproduced byte for "
+            f"byte; result files {res_files}; snapshots {snaps}; online vocabulary saved "
+            f"{out['8a']['online_vocab']}; the JAX package's run_slam.py on the same directory on "
+            f"a CPU {REF_ENTRY['run_slam']}; masked_nn launches {run_a['launches']} "
+            f"{run_a['by_site']}; {sec:.1f} s [{card}]")
+        for l in text.splitlines():
+            if l.startswith("frame/fused_track ") or l.startswith("frame "):
+                log("  " + l)
+        # ---- 8b: train_vocab_torch on 8a's map ----------------------------- #
+        _, text, run_b, sec = run_entry(train_vocab_torch.main, dev + [
+            "--map_addr", paths["map"], "--out", paths["voc2"]])
+        voc = vocab_mod.load_vocab(paths["voc2"], device=device)
+        if voc.n_words != 10 ** 4 or len(voc.levels) != 5:
+            raise AssertionError(f"8b: {voc.n_words} words, {len(voc.levels)} levels")
+        out["8b"] = dict(seconds=sec, words=voc.n_words, launches=run_b["launches"])
+        log(f"8b train_vocab_torch.py: {text.strip().splitlines()[0]}; {voc.n_words} words "
+            f"loaded back; {sec:.1f} s [{card}]")
+        # ---- 8c: localization on 8a's map under 8b's vocabulary -------------- #
+        loc, text, run_c, sec = run_entry(run_slam_torch.main, kitti + dev + [
+            "--localization", "--map_addr", paths["map"], "--voc_addr", paths["voc2"],
+            "--max_frame", str(N_ENTRY_LOC), "--output_addr", paths["loc_traj"]])
+        line_c = last_json(text)
+        traj = loc.frame_trajectory()
+        if line_c["keyframes"] != line["keyframes"] or loc.store.n_kf != mapped.store.n_kf:
+            raise AssertionError(f"8c: localization changed the keyframes: {line_c}")
+        if len(traj) < N_ENTRY_LOC // 2:
+            raise AssertionError(f"8c: {len(traj)} of {N_ENTRY_LOC} frames tracked")
+        e1, e2 = evaluate.associate_by_id(evaluate.camera_centers(mapped.frame_trajectory()),
+                                          evaluate.camera_centers(traj))
+        median = float(np.median(np.linalg.norm(e1 - e2, axis=1)))
+        if not median < LOC_BAR:
+            raise AssertionError(f"8c: median camera-centre distance {median:.6f} >= {LOC_BAR}")
+        if run_c["by_site"].get("step", 0) < 1:
+            raise AssertionError(f"8c: masked_nn launches {run_c['by_site']}")
+        out["8c"] = dict(line=line_c, tracked=len(traj), median_centre_m=median, bar_m=LOC_BAR,
+                         seconds=sec, launches=run_c["launches"], by_site=run_c["by_site"])
+        log(f"8c run_slam_torch.py --localization --voc_addr, frames 0-{N_ENTRY_LOC - 1}: "
+            f"{line_c}; {len(traj)} tracked, keyframes unchanged, median camera-centre distance "
+            f"to 8a's trajectory {median:.6f} m (bar {LOC_BAR}); masked_nn launches "
+            f"{run_c['launches']} {run_c['by_site']}; {sec:.1f} s [{card}]")
+        # ---- 8d: display_map_torch on 8a's map ----------------------------- #
+        summary, text, _, sec = run_entry(display_map_torch.main, dev + [
+            paths["map"], "--ply", paths["ply"]])
+        err = summary["avg_reproj_error_px"]
+        with open(paths["ply"]) as f:
+            vertices = int(next(l for l in f if l.startswith("element vertex")).split()[2])
+        if not (np.isfinite(err) and err < ENTRY_REPROJ_BAR) or summary["observations"] < 1:
+            raise AssertionError(f"8d: {summary} (bar {ENTRY_REPROJ_BAR} px)")
+        if vertices != summary["map_points"] + summary["frames"]:
+            raise AssertionError(f"8d: the PLY has {vertices} vertices for {summary}")
+        out["8d"] = dict(summary=summary, bar_px=ENTRY_REPROJ_BAR, seconds=sec)
+        log(f"8d display_map_torch.py: {summary}, PLY of {vertices} vertices (bar "
+            f"{ENTRY_REPROJ_BAR} px; the JAX display_map.py on the JAX package's map of the same "
+            f"directory {REF_ENTRY['display_map']}) [{card}]")
+        # ---- 8e: eval_euroc_proxy_torch, 40 frames through the lens ----------- #
+        P = cfg.local_ba_max_points
+        real_nn, seen, kept = k1.masked_nn, [0], {}
+
+        def recorder(*args):
+            # one local-map search of the step: the 20th, or the last before it
+            if getattr(k1._tls, "site", None) == "step" and args[0].shape[0] == P \
+                    and seen[0] < 20:
+                seen[0] += 1
+                kept["args"] = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                     for a in k1_full_args(args))
+            return real_nn(*args)
+
+        k1.masked_nn = recorder
+        try:
+            (euroc, result), text, run_e, sec = run_entry(
+                eval_euroc_proxy_torch.main, dev + ["--frames", str(N_EUROC), "--scale",
+                                                    str(euroc_scale), "--out", paths["euroc"]])
+        finally:
+            k1.masked_nn = real_nn
+        render = euroc.tracer.spans["render"].total
+        if result["tracked"] < EUROC_TRACKED_BAR * N_EUROC:
+            raise AssertionError(f"8e: {result['tracked']} of {N_EUROC} tracked")
+        if not result.get("ate_sim3_m", np.inf) < EUROC_ATE_BAR:
+            raise AssertionError(f"8e: sim3 ATE {result.get('ate_sim3_m')} >= {EUROC_ATE_BAR}")
+        if run_e["by_site"].get("step", 0) < 1 or "args" not in kept:
+            raise AssertionError(f"8e: masked_nn launches {run_e['by_site']}")
+        err, pairs_in, share = check_k1("EuRoC proxy local-map search", kept["args"])
+        errs.append(err)
+        k1_cases["EuRoC proxy local-map search"] = (kept["args"], pairs_in, share)
+        out["8e"] = dict(result={k: v for k, v in result.items() if k != "drift"},
+                         tracked_bar=EUROC_TRACKED_BAR, ate_bar_m=EUROC_ATE_BAR, ref=REF_EUROC,
+                         render_s=render, seconds=sec, launches=run_e["launches"],
+                         by_site=run_e["by_site"])
+        log(f"8e eval_euroc_proxy_torch.py --frames {N_EUROC} ({result['resolution']}, the "
+            f"radtan lens, loop closing): tracked {result['tracked']}, keyframes "
+            f"{result['keyframes']}, sim3 ATE {result.get('ate_sim3_m')} m (bars: tracked >= "
+            f"{EUROC_TRACKED_BAR} of the frames, ATE < {EUROC_ATE_BAR}; the JAX package's 40 frames "
+            f"on a CPU {REF_EUROC}); {result['fps']} frames/s, {result['fps_tracking']} without "
+            f"the render span ({render:.2f} s over {N_EUROC} renders); masked_nn launches "
+            f"{run_e['launches']} {run_e['by_site']}; {sec:.1f} s [{card}]")
     return out
 
 
@@ -1313,6 +1650,10 @@ def main():
                           k1_cases)
     launches_loc = sum(localization[k]["launches"] for k in ("7a", "7b", "7c"))
     stamp("phase 7")
+    # ---- 8. the entry points ------------------------------------------------ #
+    entry = phase8(cfg, device, card, errs, k1_cases)
+    launches_entry = sum(entry[k].get("launches", 0) for k in entry)
+    stamp("phase 8")
 
     # K1 by shape.  Everything that reads a clock comes before the first use
     # of torch.profiler: once it has traced, later launches of the process
@@ -1320,7 +1661,8 @@ def main():
     shapes = []
     for case in ("motion 2000x2000", "local-map 8192x2000",
                  "frame 1 motion search", "frame 1 local-map search", "keyframe fuse",
-                 "loop guided search", "loop fuse", "relocalization search"):
+                 "loop guided search", "loop fuse", "relocalization search",
+                 "EuRoC proxy local-map search"):
         args, pairs_in, share = k1_cases[case]
         bound, bound_by = k1_bound_ms(args, pairs_in)
         shapes.append(dict(shape=case, n=args[0].shape[0], m=args[1].shape[0],
@@ -1345,7 +1687,8 @@ def main():
         "name": "masked_nn", "route": "cuda",
         "source": "asdslam_torch/csrc/masked_nn.cu",
         "replaces": "asdslam_tpu/ops/pallas_match.py:42",
-        "launches": launches + launches_system + default["launches"] + launches_loc,
+        "launches": (launches + launches_system + default["launches"] + launches_loc
+                     + launches_entry),
         "max_abs_err": max(errs),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
@@ -1364,8 +1707,12 @@ def main():
                              "loc_extend_map": localization["7b"]["launches"],
                              "loc_extend_map_by_site": localization["7b"]["by_site"],
                              "euroc_lens": localization["7c"]["launches"],
-                             "euroc_lens_by_site": localization["7c"]["by_site"]},
-        "default_config": default, "localization": localization,
+                             "euroc_lens_by_site": localization["7c"]["by_site"],
+                             **{f"entry_points_{k}": entry[k]["launches"]
+                                for k in ("8a", "8c", "8e")},
+                             **{f"entry_points_{k}_by_site": entry[k]["by_site"]
+                                for k in ("8a", "8c", "8e")}},
+        "default_config": default, "localization": localization, "entry_points": entry,
         "system": {"frames": N_SYSTEM, "fps": system_fps,
                    "frame_ms_median": float(np.median(steady)),
                    "keyframe_frame_ms": [float(x) for x in frame_ms[is_kf]],

@@ -41,7 +41,7 @@ def close(j, t, tol=TOL):
 
 
 def cams(name):
-    return jcam.Camera.create(*LENSES[name]), tcam.Camera.create(*LENSES[name])
+    return jcam.Camera.create(*LENSES[name]), tcam.Camera.create(*LENSES[name], device="cpu")
 
 
 def pixels(seed, n=512):
@@ -74,7 +74,7 @@ def test_camera_functions(lens):
 @pytest.mark.parametrize("lens", ["euroc", "pinhole"])
 def test_undistort_image_and_bilinear(lens):
     jc = jcam.Camera.create(*LENSES[lens][:2], 32.0, 24.0, *LENSES[lens][4:])
-    tc = tcam.Camera.create(*LENSES[lens][:2], 32.0, 24.0, *LENSES[lens][4:])
+    tc = tcam.Camera.create(*LENSES[lens][:2], 32.0, 24.0, *LENSES[lens][4:], device="cpu")
     jc = jc._replace(fx=jnp.float32(60.0), fy=jnp.float32(58.0))
     tc = tc._replace(fx=torch.tensor(60.0), fy=torch.tensor(58.0))
     img = np.random.default_rng(3).uniform(size=(48, 64)).astype(np.float32)
@@ -91,17 +91,18 @@ def test_camera_models():
     xn = g.uniform(-0.8, 0.8, (300, 2)).astype(np.float32)
     xn[:2] = [[0.0, 0.0], [1e-9, 0.0]]  # the centre branch of every model
     params = dict(k1=-0.01, k2=0.003, k3=-0.002, k4=0.0005)
-    jd, td = jcm.EquidistantDistortion.create(**params), tcm.EquidistantDistortion.create(**params)
+    jd = jcm.EquidistantDistortion.create(**params)
+    td = tcm.EquidistantDistortion.create(**params, device="cpu")
     close(jcm.equidistant_distort(jd, jnp.asarray(xn)), tcm.equidistant_distort(td, torch.tensor(xn)))
     xd = np.asarray(jcm.equidistant_distort(jd, jnp.asarray(xn)))
     for iters in (8, 10):
         close(jcm.equidistant_undistort(jd, jnp.asarray(xd), iters),
               tcm.equidistant_undistort(td, torch.tensor(xd), iters))
-    jf, tf = jcm.FisheyeDistortion.create(w=0.9), tcm.FisheyeDistortion.create(w=0.9)
+    jf, tf = jcm.FisheyeDistortion.create(w=0.9), tcm.FisheyeDistortion.create(w=0.9, device="cpu")
     close(jcm.fisheye_distort(jf, jnp.asarray(xn)), tcm.fisheye_distort(tf, torch.tensor(xn)))
     close(jcm.fisheye_undistort(jf, jnp.asarray(xd)), tcm.fisheye_undistort(tf, torch.tensor(xd)))
     ju = jcm.UnifiedCamera.create(xi=0.8, fx=300.0, fy=300.0, cx=320.0, cy=240.0)
-    tu = tcm.UnifiedCamera.create(xi=0.8, fx=300.0, fy=300.0, cx=320.0, cy=240.0)
+    tu = tcm.UnifiedCamera.create(xi=0.8, fx=300.0, fy=300.0, cx=320.0, cy=240.0, device="cpu")
     pts = g.uniform(-1, 1, (200, 3)).astype(np.float32)
     pts[:, 2] = np.abs(pts[:, 2]) + 0.5
     pts[0] = [0.0, 0.0, 0.0]  # the zero-denominator guard

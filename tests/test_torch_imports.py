@@ -1,6 +1,9 @@
-"""Import hygiene of the PyTorch port: no file of asdslam_torch, and not
-chip_smoke.py, imports jax or the JAX package, and no kernel launch sits
-inside a try whose except could fall back to another path."""
+"""Import hygiene of the PyTorch port: no file of asdslam_torch, no entry
+point of the port (the *_torch.py scripts) and not chip_smoke.py imports jax
+or the JAX package, no kernel launch sits inside a try whose except could
+fall back to another path, and every script takes its device from
+``require_device``, which refuses a missing card instead of falling back to
+the CPU."""
 
 import ast
 import pathlib
@@ -8,7 +11,11 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FILES = sorted((ROOT / "asdslam_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the port's entry points, twins of the JAX package's scripts
+SCRIPTS = ("run_slam_torch.py", "train_vocab_torch.py", "eval_euroc_proxy_torch.py",
+           "display_map_torch.py", "bench_torch.py")
+FILES = (sorted((ROOT / "asdslam_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + [ROOT / s for s in SCRIPTS])
 FORBIDDEN = ("jax", "jaxlib", "asdslam_tpu")
 # calls that launch a hand-written kernel, directly or one level up
 LAUNCHES = ("masked_nn_launch", "masked_nn", "search_projection", "fuse_pairs")
@@ -27,6 +34,8 @@ MODULES = (
     # localization mode, persistence and the radtan lens
     "geometry/camera.py", "geometry/camera_models.py", "io/synthetic.py", "io/datasets.py",
     "io/results.py", "mapping/persistence.py",
+    # the entry points: the proxy renderers and the visualization sink
+    "io/kitti_proxy.py", "io/euroc_proxy.py", "viz.py",
 )
 
 
@@ -54,6 +63,8 @@ def test_files_found():
     for module in MODULES:
         assert f"asdslam_torch/{module}" in names, module
     assert "chip_smoke.py" in names
+    for script in SCRIPTS:
+        assert script in names, script
     assert (ROOT / "asdslam_torch" / "csrc" / "masked_nn.cu").exists()
 
 
@@ -77,6 +88,7 @@ def test_modules_import_without_jax():
     import subprocess
     import sys
     names = ["asdslam_torch." + m[:-3].replace("/", ".") for m in MODULES]
+    names += [s[:-3] for s in SCRIPTS]
     code = (
         "import sys, importlib\n"
         "class Block:\n"
@@ -89,3 +101,14 @@ def test_modules_import_without_jax():
         "assert not any(m.split('.')[0] in ('jax', 'jaxlib', 'asdslam_tpu') for m in sys.modules)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
     assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_scripts_take_the_device_from_require_device(script):
+    """Each entry point has ``--device`` (default "cuda") and passes it to
+    ``require_device``; none asks torch whether a card exists and picks a
+    device of its own."""
+    src = (ROOT / script).read_text()
+    calls = set(_call_names(ast.parse(src)))
+    assert "require_device" in calls and "is_available" not in calls, script
+    assert 'p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")' in src

@@ -333,11 +333,16 @@ def reference_phase7():
     saved, then a localization System (the config's default modes) over the
     same 20 frames; (b) that map with loc_extend_map over frames 10-39;
     (c) EuRoC's lens at 752x480 over 20 frames, default configuration with
-    loop closing."""
+    loop closing.  Between (a) and (b), 7a's relocalization check: frame 5
+    against the localization System's rich map and against a thin map of 40
+    points, each candidate's rejecting stage recorded."""
     import pickle
     import tempfile
     import time
+    import chip_smoke
+    from asdslam_tpu.estimators import pnp as jpnp
     from asdslam_tpu.io import datasets as jdata
+    from asdslam_tpu.ops import match as jmatch
     weights = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                            "asdnet_weights.pkl")
     with open(weights, "rb") as f:
@@ -376,6 +381,19 @@ def reference_phase7():
           f"{sync.stats()}, returned poses {tracked} of 20, {loc.stats()}, median camera-centre "
           f"distance to the mapping run {med:.6f} over {len(e1)} frames, "
           f"{time.time() - t0:.0f} s", flush=True)
+    # 7a's relocalization check: frame 5 against the rich map, then against a
+    # thin map of 40 of keyframe 0's points, each candidate's fate recorded
+    tr, store = loc.tracker, loc.store
+    feat = tr.extract(jnp.asarray(frames[5]).astype(jnp.float32) / 255.0)
+    rich = chip_smoke.reloc_stages(tr, feat, jmatch, jpnp)
+    kf_mp = store.kf_mp[0]
+    keep = np.unique(kf_mp[kf_mp >= 0])
+    keep = keep[store.mp_valid[keep]][:40]
+    store.mp_valid[:] = np.isin(np.arange(len(store.mp_valid)), keep)
+    tr.n_inliers = 0
+    thin = chip_smoke.reloc_stages(tr, feat, jmatch, jpnp)
+    print(f"7a JAX relocalization of frame 5, CPU: rich map {rich}; thin map of {len(keep)} "
+          f"points {thin}", flush=True)
 
     t0 = time.time()
     ext = JSystem(cfg.replace(loc_extend_map=True), asdnet_params=params,

@@ -17,6 +17,9 @@ sequence (the circle of tests/test_e2e_loop.py at the full KITTI shape,
 SlamConfig() defaults, loop closing, trained ASDNet), on the CPU:
 
     python tests/test_torch_loop.py --reference-loop
+
+and with ``--port-loop`` the port's result on the same frames, on the CPU
+(the port's own RANSAC draws, as on the card).
 """
 
 import os
@@ -608,7 +611,43 @@ def reference_loop(n_frames=155, step=0.22, per_turn=110):
           f"{path:.4f} m path, {time.time() - t0:.0f} s")
 
 
+def port_loop(n_frames=155, step=0.22, per_turn=110):
+    """The port's System on the CPU on reference_loop's frames and
+    configuration, with its own RANSAC draws as on the card: separates the
+    card's numerics from the port's own arithmetic in the loop frame."""
+    import time
+    from asdslam_torch.io import synthetic as tsyn
+    from asdslam_torch.models.asdnet import load_weights
+    from asdslam_torch.system import System as TSystem
+    from asdslam_torch.utils import evaluate as teval
+
+    cfg = TConfig()
+    K = torch.tensor([[cfg.fx, 0, cfg.cx], [0, cfg.fy, cfg.cy], [0, 0, 1.0]])
+    frames, poses = tsyn.render_sequence(
+        K, n_frames, cfg.image_height, cfg.image_width, step=step,
+        turn=2 * np.pi / per_turn, scene=tsyn.Scene(floor_y=2.0, ceil_y=-3.0, left_x=-8.0,
+                                                    right_x=8.0, back_z=-8.0, front_z=16.0),
+        device="cpu")
+    frames_u8 = (frames * 255.0).clamp(0, 255).to(torch.uint8)
+    system = TSystem(cfg, asdnet_params=load_weights(os.path.join(ROOT, "asdnet_weights.pkl")),
+                     do_loop_closing=True, device="cpu")
+    t0 = time.time()
+    for i in range(n_frames):
+        system.track_monocular(frames_u8[i], i)
+    system.finish()
+    lc = system.loop_closer
+    est = teval.camera_centers(system.keyframe_trajectory())
+    gt = teval.camera_centers([(i, poses[i].numpy()) for i in range(n_frames)])
+    e, g = teval.associate_by_id(est, gt)
+    print(f"port System, CPU, {cfg.image_width}x{cfg.image_height}, {cfg.n_features} features, "
+          f"{n_frames} frames, step {step} m, a turn in {per_turn} frames: {system.stats()}, "
+          f"frames tracked {len(system.frame_trajectory())}, loops {lc.accepted_log}, funnel "
+          f"{lc.counters}, keyframe sim3 ATE {teval.ate_rmse(e, g, align='sim3'):.6f} m, "
+          f"{time.time() - t0:.0f} s")
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] != ["--reference-loop"]:
+    modes = {"--reference-loop": reference_loop, "--port-loop": port_loop}
+    if sys.argv[1:] not in ([m] for m in modes):
         sys.exit(__doc__)
-    reference_loop()
+    modes[sys.argv[1]]()
