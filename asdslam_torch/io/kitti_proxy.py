@@ -6,12 +6,14 @@ axis-aligned textured boxes (road slabs following the path's elevation,
 "building" blocks flanking the street) is ray-cast per pixel along a real
 KITTI ground-truth path (TUM format) with the real camera intrinsics at
 1241x376: real vehicle dynamics, synthetic appearance.  The ground-truth and
-camera files are read from ``GT_DIR`` / ``CAM_DIR``, the reference
-repository's own layout in a checkout of it beside this one.
+camera files are read from ``GT_DIR`` / ``CAM_DIR`` under ``reference/`` in
+this repository, in the reference repository's own layout; until those files
+are committed there, a sequence cannot be built.
 
 The world model, the box selection and the trajectory reader are numpy and
 copied; ``raycast_grid`` and ``render_boxes`` run in torch on the device of
-their grid (the reference's ``lax.scan`` over the boxes is a loop here).
+their grid (the reference's ``lax.scan`` over the boxes is a broadcast over
+chunks of boxes here).
 """
 
 from __future__ import annotations
@@ -25,11 +27,10 @@ import torch
 from asdslam_torch.geometry import se3
 from asdslam_torch.io.synthetic import _hash01
 
-# the reference repository (ASD-SLAM) checked out beside this one: its
-# stored KITTI ground-truth trajectories and camera files
+# the KITTI ground-truth trajectories and camera files of the reference
+# repository (ASD-SLAM), in its layout under this repository's reference/
 REFERENCE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))),
-    "reference")
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "reference")
 GT_DIR = os.path.join(REFERENCE_DIR, "experiment_result", "asnd")
 CAM_DIR = os.path.join(REFERENCE_DIR, "cameraconfig", "KITTI")
 
@@ -183,6 +184,11 @@ def render_boxes(pose7, K, bmin, bmax, salt, height: int, width: int,
                         return_depth=return_depth)
 
 
+# ray-box pairs a chunk of raycast_grid holds: ~12 chunks of 8 boxes a
+# 1241x376 frame, about 50 MB for each [C, 3, H, W] temporary
+CHUNK_PAIRS = 1 << 22
+
+
 def _int32_floor(x):
     """floor(x) converted to int32 as XLA converts (saturating, NaN to 0),
     held in int64."""
@@ -203,32 +209,33 @@ def raycast_grid(pose7, xn, yn, bmin, bmax, salt, tex_scale: float = 0.35,
     c = -(R.T @ t)
     d = torch.stack([xn, yn, torch.ones_like(xn)], dim=-1) @ R  # R^T d_cam
     inv_d = 1.0 / torch.where(d.abs() < 1e-9, torch.full_like(d, 1e-9), d)
-    inv_d = [inv_d[..., k].contiguous() for k in range(3)]   # one [H, W] plane per axis
-    # [B, 3] box corners relative to the camera, on the device: the loop
-    # below reads them as 0-dim tensors, so rendering never waits on the host
+    inv_d = inv_d.permute(2, 0, 1)                               # [3, H, W]
+    # [B, 3] box corners relative to the camera, on the device
     lo = torch.as_tensor(bmin, dtype=torch.float32).to(dev) - c
     hi = torch.as_tensor(bmax, dtype=torch.float32).to(dev) - c
     salt = torch.as_tensor(salt).to(dev).to(torch.int64)
 
+    # The nearest hit over chunks of boxes, about CHUNK_PAIRS ray-box pairs
+    # each: min() takes the first box of equal t within a chunk and the
+    # strict < keeps the earlier chunk's, as the scan's strict < does.
     BIG = 1e8
     t_hit = torch.full(xn.shape, BIG, dtype=torch.float32, device=dev)
-    salt_hit = torch.zeros(xn.shape, dtype=torch.int64, device=dev)
-    axis_hit = torch.zeros(xn.shape, dtype=torch.int64, device=dev)
-    for b in range(salt.shape[0]):
-        tn = tf = ax = None
-        for k in range(3):
-            t1 = lo[b][k] * inv_d[k]
-            t2 = hi[b][k] * inv_d[k]
-            tmin, tmax = torch.minimum(t1, t2), torch.maximum(t1, t2)
-            if k == 0:
-                tn, tf, ax = tmin, tmax, torch.zeros_like(axis_hit)
-            else:   # the entry axis is the first maximum, as argmax takes it
-                ax = torch.where(tmin > tn, k, ax)
-                tn, tf = torch.maximum(tn, tmin), torch.minimum(tf, tmax)
-        hit = (tf > tn.clamp(min=1e-3)) & (tn < t_hit)
-        t_hit = torch.where(hit, tn, t_hit)
-        salt_hit = torch.where(hit, salt[b], salt_hit)
-        axis_hit = torch.where(hit, ax, axis_hit)
+    box_hit = torch.zeros(xn.shape, dtype=torch.int64, device=dev)
+    step = max(1, CHUNK_PAIRS // xn.numel())
+    for b0 in range(0, salt.shape[0], step):
+        t1 = lo[b0:b0 + step, :, None, None] * inv_d             # [C, 3, H, W]
+        t2 = hi[b0:b0 + step, :, None, None] * inv_d
+        tn = torch.minimum(t1, t2).amax(1)
+        tf = torch.maximum(t1, t2).amin(1)
+        t_near, b = torch.where(tf > tn.clamp(min=1e-3), tn, torch.inf).min(0)
+        hit = t_near < t_hit
+        t_hit = torch.where(hit, t_near, t_hit)
+        box_hit = torch.where(hit, b + b0, box_hit)
+    # the winner's salt and entry axis (the first maximum, as argmax takes
+    # it); where nothing is hit these read box 0 and the sky covers them
+    salt_hit = salt[box_hit]
+    axis_hit = torch.minimum(lo[box_hit].permute(2, 0, 1) * inv_d,
+                             hi[box_hit].permute(2, 0, 1) * inv_d).argmax(0)
 
     p = c + t_hit[..., None] * d
     # texture coords: the two axes orthogonal to the entry face

@@ -89,7 +89,7 @@ Phases, each of which raises on failure (exit code != 0):
    d. display_map_torch.py on that map with a PLY: a finite mean reprojection
       error under its bar;
    e. eval_euroc_proxy_torch.py --frames 40 (752x480 through EuRoC's lens,
-      loop closing on): the tracked share and the ATE under bars from the
+      loop closing on): the tracked share, keyframes and the ATE under bars from the
       JAX package's eval_euroc_proxy.py, the render span apart from
       tracking, and masked_nn held against its plain version on one of its
       local-map searches.
@@ -162,13 +162,18 @@ N_ENTRY, N_ENTRY_LOC, N_EUROC = 30, 20, 40
 # frames with 5 keyframes and 1067 points; in localization mode on its map 18
 # of 20 frames; display_map.py on that map 0.76 px; eval_euroc_proxy.py
 # --frames 40 tracks 37 with 4 keyframes, sim3 ATE 0.021 m.  The port is held
-# to 70% tracked and 3-10 keyframes (8a), 2 px (8d), 75% tracked and the ATE
-# bar of tests/test_euroc_proxy.py, 0.15 m (8e); 8c to phase 7a's bar.
+# to 70% tracked and the JAX keyframe count +-2 (8a), 2 px (8d), 75% tracked,
+# the keyframe count +-2 and an ATE under 0.08 m (8e); 8c to phase 7a's bar.
+# The port's own 40 EuRoC frames read 0.038 m on a CPU and 0.039 m on the
+# card: the ~1% keypoint gap moves a 2.9 m path's ATE by that much, so 0.08 m
+# is twice the port's and about four times the JAX package's.
 REF_ENTRY = dict(run_slam=dict(tracked=26, keyframes=5, map_points=1067),
                  localization=dict(tracked=18, keyframes=5), display_map=0.76)
 REF_EUROC = dict(tracked=37, keyframes=4, ate_m=0.021)
-ENTRY_TRACKED_BAR, ENTRY_KF_RANGE, ENTRY_REPROJ_BAR = 0.7, (3, 10), 2.0
-EUROC_TRACKED_BAR, EUROC_ATE_BAR = 0.75, max(2 * REF_EUROC["ate_m"], 0.15)
+ENTRY_TRACKED_BAR, ENTRY_REPROJ_BAR = 0.7, 2.0
+ENTRY_KF_RANGE = (REF_ENTRY["run_slam"]["keyframes"] - 2, REF_ENTRY["run_slam"]["keyframes"] + 2)
+EUROC_TRACKED_BAR, EUROC_ATE_BAR = 0.75, 0.08
+EUROC_KF_RANGE = (REF_EUROC["keyframes"] - 2, REF_EUROC["keyframes"] + 2)
 
 
 def log(*a):
@@ -1470,19 +1475,23 @@ def phase8(cfg, device, card, errs, k1_cases, euroc_scale=1.0):
             raise AssertionError(f"8e: {result['tracked']} of {N_EUROC} tracked")
         if not result.get("ate_sim3_m", np.inf) < EUROC_ATE_BAR:
             raise AssertionError(f"8e: sim3 ATE {result.get('ate_sim3_m')} >= {EUROC_ATE_BAR}")
+        if not EUROC_KF_RANGE[0] <= result["keyframes"] <= EUROC_KF_RANGE[1]:
+            raise AssertionError(f"8e: {result['keyframes']} keyframes, outside {EUROC_KF_RANGE}")
         if run_e["by_site"].get("step", 0) < 1 or "args" not in kept:
             raise AssertionError(f"8e: masked_nn launches {run_e['by_site']}")
         err, pairs_in, share = check_k1("EuRoC proxy local-map search", kept["args"])
         errs.append(err)
         k1_cases["EuRoC proxy local-map search"] = (kept["args"], pairs_in, share)
         out["8e"] = dict(result={k: v for k, v in result.items() if k != "drift"},
-                         tracked_bar=EUROC_TRACKED_BAR, ate_bar_m=EUROC_ATE_BAR, ref=REF_EUROC,
+                         tracked_bar=EUROC_TRACKED_BAR, ate_bar_m=EUROC_ATE_BAR,
+                         keyframes_bar=EUROC_KF_RANGE, ref=REF_EUROC,
                          render_s=render, seconds=sec, launches=run_e["launches"],
                          by_site=run_e["by_site"])
         log(f"8e eval_euroc_proxy_torch.py --frames {N_EUROC} ({result['resolution']}, the "
             f"radtan lens, loop closing): tracked {result['tracked']}, keyframes "
             f"{result['keyframes']}, sim3 ATE {result.get('ate_sim3_m')} m (bars: tracked >= "
-            f"{EUROC_TRACKED_BAR} of the frames, ATE < {EUROC_ATE_BAR}; the JAX package's 40 frames "
+            f"{EUROC_TRACKED_BAR} of the frames, keyframes in {EUROC_KF_RANGE}, ATE < {EUROC_ATE_BAR}; "
+            f"the JAX package's 40 frames "
             f"on a CPU {REF_EUROC}); {result['fps']} frames/s, {result['fps_tracking']} without "
             f"the render span ({render:.2f} s over {N_EUROC} renders); masked_nn launches "
             f"{run_e['launches']} {run_e['by_site']}; {sec:.1f} s [{card}]")
@@ -1671,6 +1680,7 @@ def main():
                            bound_ms=bound, bound_by=bound_by,
                            gated_in_pairs=pairs_in, live_tile_share=share,
                            host_enqueue_ms=k1_host_ms(args)))
+    stamp("K1 timings")
     busy, wall = device_busy(step, frames_u8, state, cand)
     log(f"profiler over 3 chained frames: device busy {busy:.1f} ms of {wall:.1f} ms wall "
         f"(idle share {1 - busy / wall:.3f}) [{card}]")
@@ -1681,6 +1691,7 @@ def main():
             f"live tile pairs {sh['live_tile_share']:.4f}, bound {sh['bound_ms']:.5f} ms "
             f"({sh['bound_by']}); host enqueue {sh['host_enqueue_ms']:.4f} ms, device "
             + ", ".join(f"{k} {v:.4f}" for k, v in sh["device_ms"].items()) + f" ms [{card}]")
+    stamp("the profiler's readings")
     log("masked_nn: no single PyTorch call computes a masked top-2 search, so library_ms is null")
     main_shape = shapes[3]  # the local-map search on its real inputs, every frame's larger call
     log(json.dumps({"kernels": [{

@@ -99,7 +99,8 @@ def main(argv=None):
                      kitti_proxy.camera_config_path(args.proxy_seq)):
             if not os.path.exists(path):
                 sys.exit(f"kitti_proxy: {path} not found (the KITTI ground truth and "
-                         "camera files of the reference repository)")
+                         "camera files of the reference repository, under this repository's "
+                         "reference/)")
         seq = kitti_proxy.KittiProxySequence(args.proxy_seq, scale=args.proxy_scale,
                                              device=device)
         cfg = seq.config(cfg)

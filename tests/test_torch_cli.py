@@ -259,6 +259,21 @@ def test_cuda_without_card_exits(name, monkeypatch, tmp_path):
     assert not os.listdir(tmp_path)
 
 
+def test_kitti_proxy_reads_inside_the_repository(tmp_path, monkeypatch):
+    """--dataset kitti_proxy reads its ground truth under the repository's
+    reference/ and nowhere around the checkout: with the file absent there,
+    the run exits with a message naming that path."""
+    from asdslam_torch.io import kitti_proxy
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for path in (kitti_proxy.gt_path("03"), kitti_proxy.camera_config_path("03")):
+        assert os.path.abspath(path).startswith(os.path.join(repo, "reference") + os.sep)
+    monkeypatch.setattr(kitti_proxy, "GT_DIR", str(tmp_path))
+    with pytest.raises(SystemExit) as e:
+        in_process(run_slam_torch.main, ["--dataset", "kitti_proxy", "--device", "cpu"])
+    assert "not found" in str(e.value.code) and str(tmp_path) in str(e.value.code)
+
+
 # --------------------------------------------------------------------------- #
 # The yardsticks of chip_smoke.py's phase 8
 # --------------------------------------------------------------------------- #

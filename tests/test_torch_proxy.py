@@ -121,6 +121,28 @@ def test_render_boxes_against_reference(tmp_path, depth):
         assert moved_share(out, ref) <= PIXEL_SHARE_BAR
 
 
+@pytest.mark.parametrize("boxes_per_chunk", [1, 3, 64])
+def test_raycast_chunks_keep_the_first_box(tmp_path, monkeypatch, boxes_per_chunk):
+    """raycast_grid splits the boxes into chunks: every split gives the same
+    bits as one chunk, and a box listed twice with another salt loses to its
+    first copy, within a chunk and across chunks, as the reference's scan."""
+    path = str(tmp_path / "gt.txt")
+    write_tum(path)
+    _, pose7, centers = tkp.load_tum_trajectory(path)
+    w = tkp.select_boxes(tkp.build_world(centers), centers[50], 32)
+    bmin, bmax = np.concatenate([w.bmin, w.bmin]), np.concatenate([w.bmax, w.bmax])
+    salt = np.concatenate([w.salt, w.salt + 7])
+    v, u = torch.meshgrid(torch.arange(38.0), torch.arange(124.0), indexing="ij")
+    xn, yn = (u - 60.7) / 71.8, (v - 18.5) / 71.8
+    one = tkp.raycast_grid(pose7[50], xn, yn, bmin, bmax, salt, return_depth=True)
+    first = tkp.raycast_grid(pose7[50], xn, yn, w.bmin, w.bmax, w.salt, return_depth=True)
+    monkeypatch.setattr(tkp, "CHUNK_PAIRS", boxes_per_chunk * xn.numel())
+    split = tkp.raycast_grid(pose7[50], xn, yn, bmin, bmax, salt, return_depth=True)
+    for a, b, c in zip(split, one, first):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert (one[1] < 1e8).float().mean() > 0.5     # most rays hit a box
+
+
 def test_kitti_proxy_sequence(tmp_path, monkeypatch):
     """KittiProxySequence on a TUM file and a camera file the test writes."""
     for mod in (tkp, jkp):
