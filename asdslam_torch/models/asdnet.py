@@ -23,12 +23,19 @@ convs run in it (bf16 by default), the BN and ReLU in f32, and the activation
 is cast back to ``compute_dtype`` after every layer, the last one included.
 Each conv takes compute-dtype operands and returns f32, as the reference's
 does (``preferred_element_type=f32``), so nothing is rounded before the BN.
+
+Training form (``ASDNetTrain``): the reference ``apply(train=True,
+batch_stats=True, compute_dtype=f32)``: f32 convs (TF32 stays off, as the
+package sets it), BN over the batch's own biased statistics, dropout with
+keep 0.7 after layer 5's ReLU, and the running statistics updated from the
+anchor pass by ``update_running_stats``.  ``save_weights`` writes the
+reference's pickle (convs HWIO), which both packages' ``run_slam`` read.
 """
 
 from __future__ import annotations
 
 import pickle
-from typing import Any, Dict
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -48,6 +55,7 @@ LAYERS = [
 
 DESC_DIM = 128
 BN_EPS = 1e-5
+DROPOUT_KEEP = 0.7
 
 
 def input_norm(x):
@@ -100,20 +108,151 @@ class ASDNet(nn.Module):
         """patches [N, 32, 32] in [0, 1] -> descriptors [N, 128] float32,
         L2-normalised."""
         x = input_norm(patches[:, None].to(torch.float32)).to(compute_dtype)
-        for i, (ks, _cin, _cout, stride) in enumerate(LAYERS):
-            if stride == 2:
-                x = F.pad(x, (0, 1, 0, 1))
-                padding = 0
-            else:
-                padding = 0 if ks == 8 else 1
-            w = getattr(self, f"conv{i}").to(compute_dtype)
-            x = _conv_f32_out(x, w, stride, padding)
+        for i in range(len(LAYERS)):
+            x = _layer_conv(x, getattr(self, f"conv{i}").to(compute_dtype), i)
             x = x * getattr(self, f"scale{i}")[:, None, None] + getattr(self, f"shift{i}")[:, None, None]
             if i < len(LAYERS) - 1:
                 x = torch.relu(x)
             x = x.to(compute_dtype)
-        d = x.reshape(x.shape[0], -1).to(torch.float32)
-        return d / torch.sqrt(torch.sum(d * d, dim=1, keepdim=True) + 1e-10)
+        return _l2_normalise(x)
+
+
+def _layer_conv(x, w, i):
+    """Layer i's conv with the reference's padding: "SAME" pads the stride-2
+    3x3 convs (0, 1), the others (1, 1); the 8x8 conv is "VALID"."""
+    ks, _cin, _cout, stride = LAYERS[i]
+    if stride == 2:
+        x = F.pad(x, (0, 1, 0, 1))
+        padding = 0
+    else:
+        padding = 0 if ks == 8 else 1
+    return _conv_f32_out(x, w, stride, padding)
+
+
+def _l2_normalise(x):
+    d = x.reshape(x.shape[0], -1).to(torch.float32)
+    return d / torch.sqrt(torch.sum(d * d, dim=1, keepdim=True) + 1e-10)
+
+
+# --------------------------------------------------------------------------- #
+# Training form
+# --------------------------------------------------------------------------- #
+def _orthogonal(seed: int, shape, gain: float) -> np.ndarray:
+    """Orthogonal init over the (fan_in, fan_out) flattening of an HWIO
+    ``shape``, the reference's ``_orthogonal`` given its integer seed: numpy
+    QR of a ``default_rng(seed)`` normal draw, columns sign-fixed by R's
+    diagonal, times ``gain``.  Returns the HWIO array in f32."""
+    fan_out = shape[-1]
+    fan_in = int(np.prod(shape[:-1]))
+    n, m = max(fan_in, fan_out), min(fan_in, fan_out)
+    a = np.random.default_rng(int(seed)).standard_normal((n, m))
+    q, r = np.linalg.qr(a)
+    q = q * np.sign(np.diagonal(r))
+    w = q if fan_in >= fan_out else q.T
+    return np.asarray((gain * w).reshape(shape), np.float32)
+
+
+def draw_init_seeds(generator: torch.Generator) -> List[int]:
+    """One integer seed per layer for ``init_params``, from a CPU generator
+    (the reference takes them from split JAX keys)."""
+    return [int(s) for s in torch.randint(0, 2 ** 32, (len(LAYERS),), generator=generator,
+                                          dtype=torch.int64)]
+
+
+def init_params(seeds: Sequence[int]) -> Dict[str, List[np.ndarray]]:
+    """Fresh parameters in the reference's layout: ``conv`` HWIO f32 arrays
+    from ``_orthogonal`` (gain 0.6), ``bn_mean`` zeros, ``bn_var`` ones."""
+    return {
+        "conv": [_orthogonal(seed, (ks, ks, cin, cout), gain=0.6)
+                 for seed, (ks, cin, cout, _s) in zip(seeds, LAYERS)],
+        "bn_mean": [np.zeros((cout,), np.float32) for _ks, _cin, cout, _s in LAYERS],
+        "bn_var": [np.ones((cout,), np.float32) for _ks, _cin, cout, _s in LAYERS],
+    }
+
+
+def draw_dropout_mask(generator: torch.Generator, n: int) -> torch.Tensor:
+    """The keep mask of the dropout before the last conv, on the
+    generator's device: [n, 128, 8, 8] bool, each entry kept with
+    probability 0.7 (the reference draws it in NHWC, [n, 8, 8, 128]; a
+    replayed mask is transposed to NCHW)."""
+    u = torch.rand((n, LAYERS[-1][1], 8, 8), generator=generator, device=generator.device)
+    return u < DROPOUT_KEEP
+
+
+class ASDNetTrain(nn.Module):
+    """Trainable ASDNet: ``conv`` the seven OIHW weights as parameters,
+    ``bn_mean{i}`` / ``bn_var{i}`` the running statistics as buffers.
+    Built from parameters in the reference's layout (``init_params``, or a
+    reference pickle's dict)."""
+
+    def __init__(self, params: Dict[str, Any]):
+        super().__init__()
+        self.conv = nn.ParameterList(
+            nn.Parameter(torch.tensor(np.asarray(w, np.float32)).permute(3, 2, 0, 1).contiguous())
+            for w in params["conv"])
+        for i in range(len(LAYERS)):
+            self.register_buffer(f"bn_mean{i}", torch.tensor(np.asarray(params["bn_mean"][i], np.float32)))
+            self.register_buffer(f"bn_var{i}", torch.tensor(np.asarray(params["bn_var"][i], np.float32)))
+
+    def forward(self, patches: torch.Tensor, train: bool = True, dropout_mask=None,
+                generator=None):
+        """patches [N, 32, 32] in [0, 1] -> (descriptors [N, 128] f32,
+        L2-normalised, (batch means, batch variances) of the seven layers).
+
+        ``train``: BN over the batch's biased statistics and dropout before
+        the last conv, with ``dropout_mask`` ([N, 128, 8, 8] bool) or one
+        drawn from ``generator``; otherwise the running statistics, no
+        dropout, and no statistics returned (empty lists)."""
+        x = input_norm(patches[:, None].to(torch.float32))
+        means, variances = [], []
+        for i in range(len(LAYERS)):
+            x = _layer_conv(x, self.conv[i], i)
+            if train:
+                mean = x.mean(dim=(0, 2, 3))
+                var = x.var(dim=(0, 2, 3), correction=0)
+                means.append(mean.detach())
+                variances.append(var.detach())
+            else:
+                mean, var = getattr(self, f"bn_mean{i}"), getattr(self, f"bn_var{i}")
+            x = (x - mean[:, None, None]) * torch.rsqrt(var + BN_EPS)[:, None, None]
+            if i < len(LAYERS) - 1:
+                x = torch.relu(x)
+            if train and i == len(LAYERS) - 2:
+                if dropout_mask is None:
+                    dropout_mask = draw_dropout_mask(generator, x.shape[0]).to(x.device)
+                x = torch.where(dropout_mask, x / DROPOUT_KEEP, torch.zeros_like(x))
+        return _l2_normalise(x), (means, variances)
+
+    @torch.no_grad()
+    def update_running_stats(self, stats, momentum: float = 0.1):
+        """running = (1 - momentum) * running + momentum * batch, per layer."""
+        for i, (bm, bv) in enumerate(zip(*stats)):
+            for name, b in ((f"bn_mean{i}", bm), (f"bn_var{i}", bv)):
+                setattr(self, name, (1 - momentum) * getattr(self, name) + momentum * b)
+
+    def params_to_jax(self) -> Dict[str, List[np.ndarray]]:
+        """The parameters in the reference's layout, keys in the order
+        ``jax.device_get`` writes them: f32 numpy lists, convs HWIO (the
+        inverse of ``params_from_jax`` before its BN folding)."""
+        def host(t):
+            return np.array(t.detach().cpu().numpy(), np.float32)
+
+        return {
+            "bn_mean": [host(getattr(self, f"bn_mean{i}")) for i in range(len(LAYERS))],
+            "bn_var": [host(getattr(self, f"bn_var{i}")) for i in range(len(LAYERS))],
+            "conv": [host(w.permute(2, 3, 1, 0).contiguous()) for w in self.conv],
+        }
+
+    def inference_state(self) -> Dict[str, torch.Tensor]:
+        """An ``ASDNet`` state dict of these weights (BN folded)."""
+        return params_from_jax(self.params_to_jax())
+
+    def save_weights(self, path):
+        """Write the reference's weights pickle (``pickle.dump(jax.device_get(
+        params))``'s bytes for the same values): ``run_slam.py`` and
+        ``run_slam_torch.py`` read it with ``--asdnet_weights``."""
+        with open(path, "wb") as f:
+            pickle.dump(self.params_to_jax(), f)
 
 
 def params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:

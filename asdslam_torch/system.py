@@ -28,6 +28,7 @@ debug image when called.
 
 from __future__ import annotations
 
+import subprocess
 from typing import Optional
 
 import numpy as np
@@ -60,6 +61,17 @@ def require_device(name: str) -> torch.device:
     if name == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
     return torch.device(name)
+
+
+def device_names(device):
+    """(torch's name of the device, nvidia-smi's "name, power limit" line or
+    None off a card)."""
+    if device.type != "cuda":
+        return "cpu", None
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    return torch.cuda.get_device_name(device), card
 
 
 class System:

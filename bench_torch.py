@@ -29,10 +29,11 @@ card, its name and power limit as nvidia-smi reports them.
 import argparse
 import json
 import os
-import subprocess
 import time
 
 import numpy as np
+
+from asdslam_torch.system import device_names, require_device
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BASELINE_FPS = 30.0  # declared anchor: 3x a nominal 10 frames/s CPU (see docstring)
@@ -176,18 +177,6 @@ def measure(cfg, asdnet_params, device, n_timed=60, reps=3, ba_points=4096, ba_o
     }
 
 
-def device_names(device):
-    """(torch's name of the device, nvidia-smi's "name, power limit" line or
-    None off a card)."""
-    import torch
-    if device.type != "cuda":
-        return "cpu", None
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
-    return torch.cuda.get_device_name(device), card
-
-
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
@@ -195,7 +184,6 @@ def main(argv=None):
 
     from asdslam_torch.config import SlamConfig
     from asdslam_torch.models import asdnet
-    from asdslam_torch.system import require_device
 
     device = require_device(args.device)
     weights = os.path.join(ROOT, "asdnet_weights.pkl")

@@ -92,7 +92,20 @@ Phases, each of which raises on failure (exit code != 0):
       loop closing on): the tracked share, keyframes and the ATE under bars from the
       JAX package's eval_euroc_proxy.py, the render span apart from
       tracking, and masked_nn held against its plain version on one of its
-      local-map searches.
+      local-map searches;
+9. ASDNet training through train_asdnet_torch.py's main(argv), at the net's
+   only width:
+   a. a pair cache of 16 384 training and 4 000 held-out make_batch pairs
+      (a CPU generator of fixed seed), 300 steps at the default batch of
+      512: finite losses, the trained FPR@95 below the random ASDNet's and
+      the classical descriptor's and within a band of the JAX package's
+      train_asdnet.py on the same cache and flags; steps/s and train_s;
+   b. a PhotoTour layout (8-bit BMP tiles, info.txt, an m50 list) written
+      from make_batch(size=64) pairs, 20 steps through --phototour;
+   c. run_slam_torch.py with 9a's weights over 20 frames of phase 5's
+      corridor as a KITTI layout: the tracked share under phase 8a's bar,
+      the keyframes, masked_nn's launches by site, and masked_nn held
+      against its plain version on one of its local-map searches.
 
 Prints a `kernels` JSON line before the last line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -174,6 +187,20 @@ ENTRY_TRACKED_BAR, ENTRY_REPROJ_BAR = 0.7, 2.0
 ENTRY_KF_RANGE = (REF_ENTRY["run_slam"]["keyframes"] - 2, REF_ENTRY["run_slam"]["keyframes"] + 2)
 EUROC_TRACKED_BAR, EUROC_ATE_BAR = 0.75, 0.08
 EUROC_KF_RANGE = (REF_EUROC["keyframes"] - 2, REF_EUROC["keyframes"] + 2)
+# Phase 9: ASDNet training.  9a: a cache of N_POOL + N_HELD_OUT make_batch
+# pairs (a CPU generator of seed 0) and train_asdnet_torch.py over it for
+# N_STEPS steps of TRAIN_BATCH pairs; 9b: a PhotoTour layout of N_TOUR_POINTS
+# 3D points, N_TOUR_STEPS steps; 9c: run_slam_torch.py with 9a's weights over
+# phase 5's first N_TRAINED frames.  The JAX package's train_asdnet.py on the
+# same cache and flags, on a CPU (python tests/test_torch_train.py
+# --reference-phase9): FPR@95 trained 0.0003 (one false positive among the
+# 4,000 held-out negatives), random 0.0838, classical 0.0318.  9a's trained
+# FPR@95 is held within 0.0025 of it (ten false positives), below the random
+# ASDNet's and the classical descriptor's; 9c to phase 8a's tracked share.
+N_POOL, N_HELD_OUT, N_STEPS, TRAIN_BATCH = 16384, 4000, 300, 512
+N_TOUR_POINTS, N_TOUR_STEPS, N_TRAINED = 512, 20, 20
+REF_TRAIN = dict(fpr95_asd_trained=0.0003, fpr95_asd_random=0.0838, fpr95_patch_classical=0.0318)
+TRAIN_FPR_BAND = 0.0025
 
 
 def log(*a):
@@ -1321,12 +1348,196 @@ def run_entry(main_fn, argv):
     return ret, buf.getvalue(), counts, time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def local_map_search(cfg):
+    """Keep the arguments of one local-map search of the fused step made
+    inside the block (the 20th, or the last before it) in the yielded dict
+    under "args", filled as the wrapper fills them."""
+    import torch
+    from asdslam_torch.ops import masked_nn as k1
+
+    real_nn, seen, kept = k1.masked_nn, [0], {}
+
+    def recorder(*args):
+        if getattr(k1._tls, "site", None) == "step" and \
+                args[0].shape[0] == cfg.local_ba_max_points and seen[0] < 20:
+            seen[0] += 1
+            kept["args"] = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                 for a in k1_full_args(args))
+        return real_nn(*args)
+
+    k1.masked_nn = recorder
+    try:
+        yield kept
+    finally:
+        k1.masked_nn = real_nn
+
+
 def last_json(text):
     """The last line of ``text`` that is a JSON object."""
     lines = [l for l in text.splitlines() if l.startswith("{")]
     if not lines:
         raise AssertionError(f"no JSON line in the output:\n{text[-2000:]}")
     return json.loads(lines[-1])
+
+
+# --------------------------------------------------------------------------- #
+# Phase 9: ASDNet training through train_asdnet_torch.py, its weights tracked
+# --------------------------------------------------------------------------- #
+def write_bmp8(path, img):
+    """An 8-bit palette grayscale BMP (bottom-up rows, padded to 4 bytes),
+    as PhotoTour's tiles are stored."""
+    import struct
+
+    h, w = img.shape
+    stride = (w + 3) & ~3
+    palette = b"".join(struct.pack("<BBBB", i, i, i, 0) for i in range(256))
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w] = img
+    pixel_data = rows[::-1].tobytes()
+    off = 14 + 40 + len(palette)
+    header = (b"BM" + struct.pack("<IHHI", off + len(pixel_data), 0, 0, off)
+              + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 8, 0, len(pixel_data), 2835, 2835, 256, 0))
+    with open(path, "wb") as f:
+        f.write(header + palette + pixel_data)
+
+
+def write_phototour(root, anchors, positives):
+    """A PhotoTour sequence directory of matched 64x64 pairs: 3D point i
+    holds patches 2i (the anchor) and 2i + 1 (the positive), 16x16 patches a
+    ``patches%04d.bmp`` tile, ``info.txt`` of point ids and an m50 pair list
+    (a match and a non-match per point)."""
+    os.makedirs(root, exist_ok=True)
+    n = len(anchors)
+    patches = np.empty((2 * n, 64, 64), np.uint8)
+    patches[0::2] = np.clip(np.round(anchors * 255.0), 0, 255)
+    patches[1::2] = np.clip(np.round(positives * 255.0), 0, 255)
+    ids = np.repeat(np.arange(n), 2)
+    for t in range(0, 2 * n, 256):
+        tile = np.zeros((16 * 64, 16 * 64), np.uint8)
+        for k, patch in enumerate(patches[t:t + 256]):
+            tile[(k // 16) * 64:(k // 16 + 1) * 64, (k % 16) * 64:(k % 16 + 1) * 64] = patch
+        write_bmp8(os.path.join(root, f"patches{t // 256:04d}.bmp"), tile)
+    np.savetxt(os.path.join(root, "info.txt"), np.stack([ids, np.zeros_like(ids)], 1), fmt="%d")
+    rows = [[2 * i, i, 0, 2 * i + 1, i, 0] for i in range(n)]
+    rows += [[2 * i, i, 0, (2 * i + 5) % (2 * n), ids[(2 * i + 5) % (2 * n)], 0] for i in range(n)]
+    np.savetxt(os.path.join(root, "m50_100000_100000_0.txt"), np.asarray(rows), fmt="%d")
+
+
+def logged_losses(text):
+    """The losses train_asdnet_torch.py prints every 200 steps."""
+    return [float(l.split()[3]) for l in text.splitlines() if l.startswith("step ")]
+
+
+def phase9(cfg, frames_u8, device, card, errs, k1_cases):
+    """9a-9c (module docstring): train_asdnet_torch.py over a pair cache and
+    over a PhotoTour layout, then run_slam_torch.py with the weights it
+    wrote.  Adds 9c's local-map search to ``k1_cases`` / ``errs`` and returns
+    the numbers for the JSON line."""
+    import tempfile
+    import torch
+    import run_slam_torch
+    import train_asdnet_torch
+    from asdslam_torch.models import train as T
+
+    dev = ["--device", device]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 9a: the default batch over a cache of make_batch pairs ----------- #
+        cache, weights = os.path.join(tmp, "pairs.npz"), os.path.join(tmp, "trained.pkl")
+        t0 = time.perf_counter()
+        T.write_pair_cache(cache, N_POOL, N_HELD_OUT)
+        cache_s = time.perf_counter() - t0
+        res, text, run_a, sec = run_entry(train_asdnet_torch.main, dev + [
+            "--pairs_cache", cache, "--steps", str(N_STEPS), "--batch", str(TRAIN_BATCH),
+            "--eval_pairs", str(N_HELD_OUT), "--out", weights])
+        losses = logged_losses(text) + [res["final_loss"]]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"9a: losses {losses}")
+        trained = res["fpr95_asd_trained"]
+        if not trained < min(res["fpr95_asd_random"], res["fpr95_patch_classical"]):
+            raise AssertionError(f"9a: trained FPR@95 {trained} not below the random ASDNet's "
+                                 f"and the classical descriptor's: {res}")
+        if not abs(trained - REF_TRAIN["fpr95_asd_trained"]) <= TRAIN_FPR_BAND:
+            raise AssertionError(f"9a: trained FPR@95 {trained} off the JAX package's "
+                                 f"{REF_TRAIN['fpr95_asd_trained']} by more than {TRAIN_FPR_BAND}")
+        out["9a"] = dict(result=res, losses=losses, cache_s=cache_s, seconds=sec, ref=REF_TRAIN,
+                         band=TRAIN_FPR_BAND, launches=run_a["launches"])
+        log(f"9a train_asdnet_torch.py --pairs_cache ({N_POOL} + {N_HELD_OUT} make_batch pairs, "
+            f"written in {cache_s:.1f} s) --steps {N_STEPS} --batch {TRAIN_BATCH}: "
+            f"{res['steps_per_s']} steps/s, train_s {res['train_s']} (training and the three "
+            f"evaluations), FPR@95 trained {trained} / random {res['fpr95_asd_random']} / "
+            f"classical {res['fpr95_patch_classical']} (the JAX package on a CPU {REF_TRAIN}, band "
+            f"{TRAIN_FPR_BAND}); losses {[round(x, 4) for x in losses]}; {sec:.1f} s [{card}]")
+        # ---- 9b: the PhotoTour reader path ----------------------------------- #
+        tour = os.path.join(tmp, "liberty")
+        a, p = T.make_batch(T.draw_batch(torch.Generator().manual_seed(3), N_TOUR_POINTS, size=64),
+                            size=64)
+        write_phototour(tour, a.numpy(), p.numpy())
+        res_b, text, _, sec = run_entry(train_asdnet_torch.main, dev + [
+            "--phototour", tour, "--steps", str(N_TOUR_STEPS), "--batch", "256", "--pool",
+            "2048", "--eval_pairs", "512", "--out", os.path.join(tmp, "tour.pkl")])
+        if not np.isfinite(res_b["final_loss"]) or res_b["train_pairs"] != 2048 \
+                or res_b["source"] != tour:
+            raise AssertionError(f"9b: {res_b}")
+        out["9b"] = dict(result=res_b, seconds=sec)
+        log(f"9b train_asdnet_torch.py --phototour ({2 * N_TOUR_POINTS} patches in "
+            f"{len(os.listdir(tour)) - 2} BMP tiles) --steps {N_TOUR_STEPS}: {res_b}; {sec:.1f} s "
+            f"[{card}]")
+        # ---- 9c: the trained weights tracking phase 5's corridor ------------- #
+        seq, cam = write_kitti_dir(tmp, frames_u8[:N_TRAINED], cfg)
+        with local_map_search(cfg) as kept:
+            _, text, run_c, sec = run_entry(run_slam_torch.main, dev + [
+                "--dataset", "kitti", "--seq_dir", seq, "--camera_config", cam,
+                "--asdnet_weights", weights, "--output_addr", os.path.join(tmp, "traj.txt")])
+        line = last_json(text)
+        if line["frames"] != N_TRAINED or line["tracked"] < ENTRY_TRACKED_BAR * N_TRAINED:
+            raise AssertionError(f"9c: {line} (tracked bar {ENTRY_TRACKED_BAR} of {N_TRAINED})")
+        if run_c["by_site"].get("step", 0) < 1 or "args" not in kept:
+            raise AssertionError(f"9c: masked_nn launches {run_c['by_site']}")
+        err, pairs_in, share = check_k1("trained weights local-map search", kept["args"])
+        errs.append(err)
+        k1_cases["trained weights local-map search"] = (kept["args"], pairs_in, share)
+        out["9c"] = dict(line=line, tracked_bar=ENTRY_TRACKED_BAR, seconds=sec,
+                         launches=run_c["launches"], by_site=run_c["by_site"])
+        log(f"9c run_slam_torch.py --asdnet_weights (9a's) over {N_TRAINED} corridor frames at "
+            f"{cfg.image_width}x{cfg.image_height}: {line}; keyframes {line['keyframes']}; "
+            f"masked_nn launches {run_c['launches']} {run_c['by_site']}; {sec:.1f} s [{card}]")
+    return out
+
+
+def train_busy(device, n_steps=10):
+    """(device kernel ms, wall ms, the five largest CUDA kernels' device ms
+    a step) over ``n_steps`` train_steps at TRAIN_BATCH after three warm
+    ones, from torch.profiler with CUDA activity only."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from asdslam_torch.models import asdnet
+    from asdslam_torch.models import train as T
+
+    model = asdnet.ASDNetTrain(asdnet.init_params(
+        asdnet.draw_init_seeds(torch.Generator().manual_seed(0)))).to(device)
+    opt = T.make_optimizer(model)
+    g = torch.Generator(device).manual_seed(0)
+    a, p = T.make_batch(T.draw_batch(g, TRAIN_BATCH))
+
+    def steps(n):
+        for _ in range(n):
+            T.train_step(model, opt, a, p, 0.1, T.draw_step(g, TRAIN_BATCH))
+
+    steps(3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps(n_steps)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    attr = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    per_step = sorted(((e.key, getattr(e, attr) / 1e3 / n_steps) for e in events),
+                      key=lambda kv: -kv[1])
+    return sum(ms for _, ms in per_step) * n_steps, wall, per_step[:5]
 
 
 def phase8(cfg, device, card, errs, k1_cases, euroc_scale=1.0):
@@ -1343,7 +1554,6 @@ def phase8(cfg, device, card, errs, k1_cases, euroc_scale=1.0):
     from asdslam_torch.io import synthetic
     from asdslam_torch.loop import vocab as vocab_mod
     from asdslam_torch.mapping import persistence
-    from asdslam_torch.ops import masked_nn as k1
     from asdslam_torch.utils import evaluate
 
     weights = os.path.join(os.path.dirname(os.path.abspath(__file__)), "asdnet_weights.pkl")
@@ -1451,25 +1661,10 @@ def phase8(cfg, device, card, errs, k1_cases, euroc_scale=1.0):
             f"{ENTRY_REPROJ_BAR} px; the JAX display_map.py on the JAX package's map of the same "
             f"directory {REF_ENTRY['display_map']}) [{card}]")
         # ---- 8e: eval_euroc_proxy_torch, 40 frames through the lens ----------- #
-        P = cfg.local_ba_max_points
-        real_nn, seen, kept = k1.masked_nn, [0], {}
-
-        def recorder(*args):
-            # one local-map search of the step: the 20th, or the last before it
-            if getattr(k1._tls, "site", None) == "step" and args[0].shape[0] == P \
-                    and seen[0] < 20:
-                seen[0] += 1
-                kept["args"] = tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                                     for a in k1_full_args(args))
-            return real_nn(*args)
-
-        k1.masked_nn = recorder
-        try:
+        with local_map_search(cfg) as kept:
             (euroc, result), text, run_e, sec = run_entry(
                 eval_euroc_proxy_torch.main, dev + ["--frames", str(N_EUROC), "--scale",
                                                     str(euroc_scale), "--out", paths["euroc"]])
-        finally:
-            k1.masked_nn = real_nn
         render = euroc.tracer.spans["render"].total
         if result["tracked"] < EUROC_TRACKED_BAR * N_EUROC:
             raise AssertionError(f"8e: {result['tracked']} of {N_EUROC} tracked")
@@ -1663,6 +1858,12 @@ def main():
     entry = phase8(cfg, device, card, errs, k1_cases)
     launches_entry = sum(entry[k].get("launches", 0) for k in entry)
     stamp("phase 8")
+    # ---- 9. ASDNet training ------------------------------------------------ #
+    t0 = time.perf_counter()
+    training = phase9(cfg, frames_u8, device, card, errs, k1_cases)
+    training["seconds"] = time.perf_counter() - t0
+    launches_train = training["9c"]["launches"]
+    stamp("phase 9")
 
     # K1 by shape.  Everything that reads a clock comes before the first use
     # of torch.profiler: once it has traced, later launches of the process
@@ -1671,7 +1872,7 @@ def main():
     for case in ("motion 2000x2000", "local-map 8192x2000",
                  "frame 1 motion search", "frame 1 local-map search", "keyframe fuse",
                  "loop guided search", "loop fuse", "relocalization search",
-                 "EuRoC proxy local-map search"):
+                 "EuRoC proxy local-map search", "trained weights local-map search"):
         args, pairs_in, share = k1_cases[case]
         bound, bound_by = k1_bound_ms(args, pairs_in)
         shapes.append(dict(shape=case, n=args[0].shape[0], m=args[1].shape[0],
@@ -1691,6 +1892,11 @@ def main():
             f"live tile pairs {sh['live_tile_share']:.4f}, bound {sh['bound_ms']:.5f} ms "
             f"({sh['bound_by']}); host enqueue {sh['host_enqueue_ms']:.4f} ms, device "
             + ", ".join(f"{k} {v:.4f}" for k, v in sh["device_ms"].items()) + f" ms [{card}]")
+    t_busy, t_wall, t_top = train_busy(device)
+    training["profile"] = dict(steps=10, busy_ms=t_busy, wall_ms=t_wall, top_kernels_ms=t_top)
+    log(f"profiler over 10 training steps at batch {TRAIN_BATCH}: device busy {t_busy:.1f} ms of "
+        f"{t_wall:.1f} ms wall (idle share {1 - t_busy / t_wall:.3f}); largest kernels, device ms a "
+        f"step: " + ", ".join(f"{k[:60]} {v:.3f}" for k, v in t_top) + f" [{card}]")
     stamp("the profiler's readings")
     log("masked_nn: no single PyTorch call computes a masked top-2 search, so library_ms is null")
     main_shape = shapes[3]  # the local-map search on its real inputs, every frame's larger call
@@ -1699,7 +1905,7 @@ def main():
         "source": "asdslam_torch/csrc/masked_nn.cu",
         "replaces": "asdslam_tpu/ops/pallas_match.py:42",
         "launches": (launches + launches_system + default["launches"] + launches_loc
-                     + launches_entry),
+                     + launches_entry + launches_train),
         "max_abs_err": max(errs),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
@@ -1722,8 +1928,11 @@ def main():
                              **{f"entry_points_{k}": entry[k]["launches"]
                                 for k in ("8a", "8c", "8e")},
                              **{f"entry_points_{k}_by_site": entry[k]["by_site"]
-                                for k in ("8a", "8c", "8e")}},
+                                for k in ("8a", "8c", "8e")},
+                             "trained_weights": launches_train,
+                             "trained_weights_by_site": training["9c"]["by_site"]},
         "default_config": default, "localization": localization, "entry_points": entry,
+        "training": training,
         "system": {"frames": N_SYSTEM, "fps": system_fps,
                    "frame_ms_median": float(np.median(steady)),
                    "keyframe_frame_ms": [float(x) for x in frame_ms[is_kf]],

@@ -13,7 +13,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 # the port's entry points, twins of the JAX package's scripts
 SCRIPTS = ("run_slam_torch.py", "train_vocab_torch.py", "eval_euroc_proxy_torch.py",
-           "display_map_torch.py", "bench_torch.py")
+           "display_map_torch.py", "bench_torch.py", "train_asdnet_torch.py")
 FILES = (sorted((ROOT / "asdslam_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
          + [ROOT / s for s in SCRIPTS])
 FORBIDDEN = ("jax", "jaxlib", "asdslam_tpu")
@@ -36,6 +36,8 @@ MODULES = (
     "io/results.py", "mapping/persistence.py",
     # the entry points: the proxy renderers and the visualization sink
     "io/kitti_proxy.py", "io/euroc_proxy.py", "viz.py",
+    # training
+    "models/train.py", "models/proxy_pairs.py",
 )
 
 
