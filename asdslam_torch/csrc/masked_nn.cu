@@ -1,5 +1,7 @@
 // Fused masked nearest-neighbour search for Hopper (sm_90a): spatially
-// ordered, gate-culled tiles with the 128-deep dot on the tensor cores.
+// ordered, gate-culled tiles with the D-deep dot on the tensor cores, built
+// for the two descriptor widths the system has: D = 128 (ASD) and D = 256
+// (the ORB embedding).
 //
 // Replaces asdslam_tpu/ops/pallas_match.py::_kernel (launched by masked_nn,
 // pallas_match.py:154).  For each row i of A and every column j of B:
@@ -18,8 +20,9 @@
 // search, 2000 x 2000) and ~0.01% (local-map search, 8192 x 2000) of the
 // pairs, so the work these inputs need is the bf16 dot of the gated-in
 // pairs (well under a microsecond at 989 TFLOP/s) and the bytes of the
-// descriptors (1-5 MB, about a microsecond at 3.35 TB/s).  Launches and the
-// ordering step set the time, not either bound.
+// descriptors (1-5 MB at D = 128, twice that at D = 256; one to three
+// microseconds at 3.35 TB/s).  Launches and the ordering step set the time,
+// not either bound.
 //
 // Design (three launches from one C call, no host synchronisation):
 //  1. order_kernel, one block per side: a counting sort of the rows of A and
@@ -38,12 +41,15 @@
 //     every column tile whose summary cannot meet the row tile's (boxes
 //     apart, levels out of window, or nothing valid), stages each live B
 //     tile as bf16 into a two-stage cp.async ring in the 128-byte-swizzled
-//     layout, runs the dot as eight wgmma m64n64k16 (bf16 -> f32, A and B
-//     from shared memory), and folds the tile into a running top-2 per row
-//     in registers.  The gate and distance use non-contracting intrinsics,
-//     so they round as the plain PyTorch version does; only the order of
-//     the 128-term dot differs (~1e-6).  Columns are split across blocks
-//     (~4 blocks per multiprocessor); the last block of a row tile to
+//     layout (D / 64 slabs of 64 columns), runs the dot as D / 16 wgmma
+//     m64n64k16 (bf16 -> f32, A and B from shared memory), and folds the
+//     tile into a running top-2 per row in registers.  The gate and distance
+//     use non-contracting intrinsics, so they round as the plain PyTorch
+//     version does; only the order of the D-term dot differs (~1e-6; none on
+//     the ORB embedding, whose +-1/16 entries make every partial sum exact).
+//     Columns are split across blocks (~4 blocks per multiprocessor; at
+//     D = 256 a block takes ~101 KB of shared memory against ~54 KB at
+//     D = 128, so at most two share an SM); the last block of a row tile to
 //     finish merges its splits in split order and writes the rows back to
 //     their original places.
 // The running top-2 is ordered lexicographically by (d, original column
@@ -58,7 +64,6 @@
 
 namespace {
 
-constexpr int D = 128;                 // descriptor width
 constexpr int TILE = 64;               // rows per row tile, columns per column tile
 constexpr float CELL_SCALE = 1.f / 32.f;  // 32-px cells
 constexpr int CELLS = 64;              // cells per axis (positions beyond clamp)
@@ -74,12 +79,17 @@ constexpr float BIG = 1e30f;
 // search_kernel shared memory: the A tile, then two stages of B tile +
 // column info (float4 per column) + column index; tiles 1024-byte aligned.
 constexpr int SLAB = TILE * 128;       // 64 rows x 64 bf16: one swizzle atom column
-constexpr int TILE_BYTES = 2 * SLAB;   // 64 x 128 bf16
-constexpr int INFO_OFF = TILE_BYTES;
-constexpr int CIDX_OFF = INFO_OFF + TILE * 16;
-constexpr int STAGE_BYTES = 18432;     // TILE_BYTES + 1024 + 256, rounded up to 1024
-constexpr int SMEM_BYTES = 1024 + TILE_BYTES + 2 * STAGE_BYTES;
-static_assert(CIDX_OFF + TILE * 4 <= STAGE_BYTES, "stage overflow");
+template <int D>
+struct Smem {
+  static_assert(D % 64 == 0, "D must be a multiple of 64");
+  static constexpr int TILE_BYTES = (D / 64) * SLAB;  // 64 x D bf16
+  static constexpr int INFO_OFF = TILE_BYTES;
+  static constexpr int CIDX_OFF = INFO_OFF + TILE * 16;
+  // TILE_BYTES + 1024 + 256, rounded up to 1024
+  static constexpr int STAGE_BYTES = (CIDX_OFF + TILE * 4 + 1023) / 1024 * 1024;
+  static constexpr int BYTES = 1024 + TILE_BYTES + 2 * STAGE_BYTES;
+};
+static_assert(Smem<128>::BYTES == 54272 && Smem<256>::BYTES == 103424, "smem layout");
 
 struct SideIn {
   const float* desc;       // [count, D]
@@ -222,7 +232,9 @@ __device__ __forceinline__ float4 row_box(float x, float y, float r2) {
 }
 
 // 2. Sorted bf16 descriptors, entry info and tile summaries; one block per
-// 64-entry tile, row tiles first.
+// 64-entry tile, row tiles first.  Lane l of a warp holds float4s l, l + 32,
+// ... of each of its entries' rows (D / 128 of them).
+template <int D>
 __global__ void __launch_bounds__(GATHER_THREADS)
 gather_kernel(SideIn a, SideOut oa, SideIn b, SideOut ob) {
   __shared__ float4 ebox[TILE];
@@ -237,25 +249,34 @@ gather_kernel(SideIn a, SideOut oa, SideIn b, SideOut ob) {
 
   // warp w owns entries 8w .. 8w+7 of the tile; their loads are issued together
   constexpr int PER_WARP = TILE / (GATHER_THREADS / 32);
+  constexpr int PER_LANE = D / 128;  // float4s of a row per lane
   const int p0 = tile * TILE + warp * PER_WARP;
   const int mine = lane < PER_WARP ? o.perm[p0 + lane] : -1;
-  float4 v[PER_WARP];
+  float4 v[PER_WARP][PER_LANE];
   float ss[PER_WARP];
 #pragma unroll
   for (int k = 0; k < PER_WARP; ++k) {
     const int e = __shfl_sync(0xffffffffu, mine, k);
-    v[k] = e >= 0 ? __ldg(reinterpret_cast<const float4*>(s.desc) + (size_t)e * (D / 4) + lane)
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < PER_LANE; ++q)
+      v[k][q] = e >= 0 ? __ldg(reinterpret_cast<const float4*>(s.desc) + (size_t)e * (D / 4) +
+                               32 * q + lane)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 #pragma unroll
   for (int k = 0; k < PER_WARP; ++k) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[k].x, v[k].y);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[k].z, v[k].w);
-    uint2 packed;
-    packed.x = *reinterpret_cast<const uint32_t*>(&lo);
-    packed.y = *reinterpret_cast<const uint32_t*>(&hi);
-    reinterpret_cast<uint2*>(o.d16)[(size_t)(p0 + k) * (D / 4) + lane] = packed;
-    ss[k] = v[k].x * v[k].x + v[k].y * v[k].y + v[k].z * v[k].z + v[k].w * v[k].w;
+    ss[k] = 0.f;
+#pragma unroll
+    for (int q = 0; q < PER_LANE; ++q) {
+      const float4 x = v[k][q];
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+      uint2 packed;
+      packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+      packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+      reinterpret_cast<uint2*>(o.d16)[(size_t)(p0 + k) * (D / 4) + 32 * q + lane] = packed;
+      ss[k] += x.x * x.x + x.y * x.y + x.z * x.z + x.w * x.w;
+    }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) ss[k] += __shfl_xor_sync(0xffffffffu, ss[k], off);
   }
@@ -340,23 +361,28 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(dst), "l"(src) : "memory");
 }
 
-// A 64 x 128 bf16 tile (rows of 256 B in global memory) into the K-major
-// 128-byte-swizzled layout: two slabs of 64 rows x 128 B (k 0-63, k 64-127);
-// the 16-byte chunk c of row r sits at chunk c ^ (r % 8) of its row.
+// A 64 x D bf16 tile (rows of 2D bytes in global memory, D / 8 chunks of 16
+// bytes) into the K-major 128-byte-swizzled layout: D / 64 slabs of 64 rows x
+// 128 B (k 0-63, k 64-127, ...); the 16-byte chunk c of row r sits in slab
+// c / 8, at chunk (c % 8) ^ (r % 8) of its row.
+template <int D>
 __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, int tid) {
+  constexpr int CHUNKS = D / 8;
   const char* g = reinterpret_cast<const char*>(src);
 #pragma unroll
-  for (int e = tid; e < TILE * 16; e += SEARCH_THREADS) {
-    const int r = e >> 4, c = e & 15;
-    cp_async16(dst + (c >> 3) * SLAB + r * 128 + (((c & 7) ^ (r & 7)) << 4), g + r * 256 + c * 16);
+  for (int e = tid; e < TILE * CHUNKS; e += SEARCH_THREADS) {
+    const int r = e / CHUNKS, c = e % CHUNKS;
+    cp_async16(dst + (c >> 3) * SLAB + r * 128 + (((c & 7) ^ (r & 7)) << 4),
+               g + r * (2 * D) + c * 16);
   }
 }
 
+template <int D>
 __device__ __forceinline__ void load_stage(uint32_t stage, const __nv_bfloat16* b16,
                                            const float4* binfo, const int32_t* bidx, int ct, int tid) {
-  load_tile(stage, b16 + (size_t)ct * TILE * D, tid);
-  if (tid < TILE) cp_async16(stage + INFO_OFF + tid * 16, binfo + ct * TILE + tid);
-  else if (tid < TILE + TILE / 4) cp_async16(stage + CIDX_OFF + (tid - TILE) * 16,
+  load_tile<D>(stage, b16 + (size_t)ct * TILE * D, tid);
+  if (tid < TILE) cp_async16(stage + Smem<D>::INFO_OFF + tid * 16, binfo + ct * TILE + tid);
+  else if (tid < TILE + TILE / 4) cp_async16(stage + Smem<D>::CIDX_OFF + (tid - TILE) * 16,
                                              bidx + ct * TILE + (tid - TILE) * 4);
 }
 
@@ -422,6 +448,7 @@ struct RowState {
   int idx[2];
 };
 
+template <int D>
 __device__ __forceinline__ void search_tile(RowState& st, uint32_t sa, uint32_t sb,
                                             const uint8_t* stage_ptr, int quad,
                                             float dmin, float dmax) {
@@ -437,8 +464,8 @@ __device__ __forceinline__ void search_tile(RowState& st, uint32_t sa, uint32_t 
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
   fence_operands(acc);
 
-  const float4* cinfo = reinterpret_cast<const float4*>(stage_ptr + INFO_OFF);
-  const int* cidx = reinterpret_cast<const int*>(stage_ptr + CIDX_OFF);
+  const float4* cinfo = reinterpret_cast<const float4*>(stage_ptr + Smem<D>::INFO_OFF);
+  const int* cidx = reinterpret_cast<const int*>(stage_ptr + Smem<D>::CIDX_OFF);
 #pragma unroll
   for (int c = 0; c < TILE / 8; ++c) {
 #pragma unroll
@@ -467,6 +494,7 @@ __device__ __forceinline__ void search_tile(RowState& st, uint32_t sa, uint32_t 
 // split's column tiles are tested against the row tile 128 at a time, all
 // threads at once, into a list of live tiles in shared memory; the block
 // then walks the list with the next tile's copy in flight.
+template <int D>
 __global__ void __launch_bounds__(SEARCH_THREADS)
 search_kernel(const __nv_bfloat16* __restrict__ a16, const float4* __restrict__ ainfo,
               const float* __restrict__ arad, const int32_t* __restrict__ aidx,
@@ -478,6 +506,7 @@ search_kernel(const __nv_bfloat16* __restrict__ a16, const float4* __restrict__ 
               int* __restrict__ done, const int32_t* __restrict__ perm_a,
               int32_t* __restrict__ out_idx, float* __restrict__ out_best,
               float* __restrict__ out_second) {
+  constexpr int TILE_BYTES = Smem<D>::TILE_BYTES, STAGE_BYTES = Smem<D>::STAGE_BYTES;
   extern __shared__ uint8_t smem_raw[];
   __shared__ int live[SEARCH_THREADS];
   __shared__ int warp_live[SEARCH_THREADS / 32];
@@ -519,7 +548,7 @@ search_kernel(const __nv_bfloat16* __restrict__ a16, const float4* __restrict__ 
     if (total == 0) continue;
 
     if (!a_loaded) {
-      load_tile(sa, a16 + (size_t)rt * TILE * D, tid);
+      load_tile<D>(sa, a16 + (size_t)rt * TILE * D, tid);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int p = row0 + 8 * h;
@@ -533,11 +562,12 @@ search_kernel(const __nv_bfloat16* __restrict__ a16, const float4* __restrict__ 
       }
       a_loaded = true;
     }
-    load_stage(base + TILE_BYTES + stage * STAGE_BYTES, b16, binfo, bidx, live[0], tid);
+    load_stage<D>(base + TILE_BYTES + stage * STAGE_BYTES, b16, binfo, bidx, live[0], tid);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     for (int q = 0; q < total; ++q) {
       if (q + 1 < total) {
-        load_stage(base + TILE_BYTES + (stage ^ 1) * STAGE_BYTES, b16, binfo, bidx, live[q + 1], tid);
+        load_stage<D>(base + TILE_BYTES + (stage ^ 1) * STAGE_BYTES, b16, binfo, bidx,
+                      live[q + 1], tid);
         asm volatile("cp.async.commit_group;\n" ::: "memory");
         asm volatile("cp.async.wait_group 1;\n" ::: "memory");
       } else {
@@ -546,7 +576,7 @@ search_kernel(const __nv_bfloat16* __restrict__ a16, const float4* __restrict__ 
       // cp.async wrote through the generic proxy; wgmma reads through the async one
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();
-      search_tile(st, sa, base + TILE_BYTES + stage * STAGE_BYTES,
+      search_tile<D>(st, sa, base + TILE_BYTES + stage * STAGE_BYTES,
                   gbase + TILE_BYTES + stage * STAGE_BYTES, quad, dmin, dmax);
       __syncthreads();  // this stage is refilled two tiles on
       stage ^= 1;
@@ -603,11 +633,11 @@ int split_count(int np_, int mp) {
   return max(1, min(mp / TILE, 4 * 132 / (np_ / TILE)));
 }
 
-long long scratch_layout(int n, int m, long long* off) {
+long long scratch_layout(int n, int m, int d, long long* off) {
   const long long np_ = (n + TILE - 1) / TILE * TILE, mp = (m + TILE - 1) / TILE * TILE;
   const long long splits = split_count((int)np_, (int)mp);
   const long long bytes[N_FIELDS] = {
-      4 * np_, 4 * mp, 2 * np_ * D, 2 * mp * D, 16 * np_, 16 * mp, 4 * np_, 4 * np_, 4 * mp,
+      4 * np_, 4 * mp, 2 * np_ * d, 2 * mp * d, 16 * np_, 16 * mp, 4 * np_, 4 * np_, 4 * mp,
       4 * SUMMARY * np_ / TILE, 4 * SUMMARY * mp / TILE, 4 * splits * np_, 4 * splits * np_,
       4 * splits * np_, 4 * np_ / TILE};
   long long o = 0;
@@ -618,44 +648,23 @@ long long scratch_layout(int n, int m, long long* off) {
   return o;
 }
 
-}  // namespace
-
-// The scratch buffer masked_nn_launch needs for n rows and m columns: its
-// size in bytes; `offsets` (N_FIELDS = 15 entries) receives each field's
-// byte offset: perm_a [np_], perm_b [mp] int32 (np_, mp: n, m rounded up to
-// 64); a16 [np_, 128], b16 [mp, 128] bf16; ainfo [np_, 4], binfo [mp, 4] f32
-// (x, y, norm, level bits); arad [np_] f32; aidx [np_], bidx [mp] int32;
-// rsum [np_/64, 8], csum [mp/64, 8] f32 (box, level range and count bits);
-// pbest, pidx, psec [splits, np_]; done [np_/64] int32; and `splits` the
-// column splits.
-extern "C" long long masked_nn_scratch_layout(int n, int m, long long* offsets, int* splits) {
-  const int np_ = (n + TILE - 1) / TILE * TILE, mp = (m + TILE - 1) / TILE * TILE;
-  *splits = split_count(np_, mp);
-  return scratch_layout(n, m, offsets);
-}
-
-// Plain C entry point (loaded with ctypes), its arguments in the order of
-// the wrapper's.  Every pointer is a device pointer to a contiguous array:
-// desc_a [n, 128], desc_b [m, 128] f32; valid_a [n], valid_b [m] bool (one
-// byte); uv_a [n, 2], uv_b [m, 2], rad2 [n] f32; lvl_a [n], lvl_b [m] int32; `scratch` as masked_nn_scratch_layout
-// describes it (256-byte aligned); outputs out_idx [n] int32, out_best [n],
-// out_second [n] f32.  Launches on `stream` without synchronising; returns
-// the first cudaError_t.
-extern "C" int masked_nn_launch(
-    const float* desc_a, const float* desc_b, const uint8_t* valid_a, const uint8_t* valid_b,
-    const float* uv_a, const float* uv_b, const float* rad2,
-    const int32_t* lvl_a, const int32_t* lvl_b, int n, int m, int d, float dmin, float dmax,
-    void* scratch, int32_t* out_idx, float* out_best, float* out_second, void* stream) {
-  if (d != D || n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
-  static bool smem_attr_set = false;  // once per process
+// One launch of the three kernels at width D; returns the first cudaError_t.
+template <int D>
+int launch(const float* desc_a, const float* desc_b, const uint8_t* valid_a,
+           const uint8_t* valid_b, const float* uv_a, const float* uv_b, const float* rad2,
+           const int32_t* lvl_a, const int32_t* lvl_b, int n, int m, float dmin, float dmax,
+           void* scratch, int32_t* out_idx, float* out_best, float* out_second,
+           cudaStream_t st) {
+  // each instantiation of search_kernel needs its own opt-in above 48 KB
+  static bool smem_attr_set = false;  // once per process and width
   if (!smem_attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+        search_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
     if (err != cudaSuccess) return (int)err;
     smem_attr_set = true;
   }
   long long off[N_FIELDS];
-  scratch_layout(n, m, off);
+  scratch_layout(n, m, D, off);
   char* b = static_cast<char*>(scratch);
   int32_t* perm_a = reinterpret_cast<int32_t*>(b + off[PERM_A]);
   int32_t* perm_b = reinterpret_cast<int32_t*>(b + off[PERM_B]);
@@ -673,7 +682,6 @@ extern "C" int masked_nn_launch(
   float* psec = reinterpret_cast<float*>(b + off[PSEC]);
   int* done = reinterpret_cast<int*>(b + off[DONE]);
 
-  const cudaStream_t st = (cudaStream_t)stream;
   const int np_ = (n + TILE - 1) / TILE * TILE, mp = (m + TILE - 1) / TILE * TILE;
   const int splits = split_count(np_, mp);
   const SideIn ia{desc_a, uv_a, rad2, valid_a, lvl_a, n};
@@ -682,9 +690,50 @@ extern "C" int masked_nn_launch(
   const SideOut ob{perm_b, b16, binfo, nullptr, bidx, csum, mp};
 
   order_kernel<<<2, SORT_THREADS, 0, st>>>(ia, ib, perm_a, np_, perm_b, mp, done);
-  gather_kernel<<<np_ / TILE + mp / TILE, GATHER_THREADS, 0, st>>>(ia, oa, ib, ob);
-  search_kernel<<<dim3(np_ / TILE, splits), SEARCH_THREADS, SMEM_BYTES, st>>>(
+  gather_kernel<D><<<np_ / TILE + mp / TILE, GATHER_THREADS, 0, st>>>(ia, oa, ib, ob);
+  search_kernel<D><<<dim3(np_ / TILE, splits), SEARCH_THREADS, Smem<D>::BYTES, st>>>(
       a16, ainfo, arad, aidx, rsum, b16, binfo, bidx, csum, mp / TILE, np_, dmin, dmax,
       pbest, pidx, psec, done, perm_a, out_idx, out_best, out_second);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The scratch buffer masked_nn_launch needs for n rows and m columns of
+// width d: its size in bytes; `offsets` (N_FIELDS = 15 entries) receives each
+// field's byte offset: perm_a [np_], perm_b [mp] int32 (np_, mp: n, m rounded
+// up to 64); a16 [np_, d], b16 [mp, d] bf16; ainfo [np_, 4], binfo [mp, 4] f32
+// (x, y, norm, level bits); arad [np_] f32; aidx [np_], bidx [mp] int32;
+// rsum [np_/64, 8], csum [mp/64, 8] f32 (box, level range and count bits);
+// pbest, pidx, psec [splits, np_]; done [np_/64] int32; and `splits` the
+// column splits.
+extern "C" long long masked_nn_scratch_layout(int n, int m, int d, long long* offsets,
+                                               int* splits) {
+  const int np_ = (n + TILE - 1) / TILE * TILE, mp = (m + TILE - 1) / TILE * TILE;
+  *splits = split_count(np_, mp);
+  return scratch_layout(n, m, d, offsets);
+}
+
+// Plain C entry point (loaded with ctypes), its arguments in the order of
+// the wrapper's.  Every pointer is a device pointer to a contiguous array:
+// desc_a [n, d], desc_b [m, d] f32 with d 128 or 256; valid_a [n], valid_b
+// [m] bool (one byte); uv_a [n, 2], uv_b [m, 2], rad2 [n] f32; lvl_a [n],
+// lvl_b [m] int32; `scratch` as masked_nn_scratch_layout describes it for the
+// same n, m and d (256-byte aligned); outputs out_idx [n] int32, out_best
+// [n], out_second [n] f32.  Launches on `stream` without synchronising;
+// returns the first cudaError_t (cudaErrorInvalidValue for another width).
+extern "C" int masked_nn_launch(
+    const float* desc_a, const float* desc_b, const uint8_t* valid_a, const uint8_t* valid_b,
+    const float* uv_a, const float* uv_b, const float* rad2,
+    const int32_t* lvl_a, const int32_t* lvl_b, int n, int m, int d, float dmin, float dmax,
+    void* scratch, int32_t* out_idx, float* out_best, float* out_second, void* stream) {
+  if (n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (d == 128)
+    return launch<128>(desc_a, desc_b, valid_a, valid_b, uv_a, uv_b, rad2, lvl_a, lvl_b, n, m,
+                       dmin, dmax, scratch, out_idx, out_best, out_second, st);
+  if (d == 256)
+    return launch<256>(desc_a, desc_b, valid_a, valid_b, uv_a, uv_b, rad2, lvl_a, lvl_b, n, m,
+                       dmin, dmax, scratch, out_idx, out_best, out_second, st);
+  return (int)cudaErrorInvalidValue;
 }

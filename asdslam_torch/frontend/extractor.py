@@ -3,9 +3,10 @@ descriptors.
 
 Port of ``asdslam_tpu/frontend/extractor.py`` (ORBextractor::ExtractDesc,
 ORBextractor.cc:1137-1248): 8-level x1.2 pyramid, per-level FAST with cell
-fallback thresholds, intensity-centroid orientation, then the ASD descriptor
-CNN on upright 32x32 patches cut from the Gaussian-blurred level, one CNN
-batch over all levels.  Per-level budgets follow the reference's geometric
+fallback thresholds, intensity-centroid orientation, then the descriptor on
+32x32 patches of the Gaussian-blurred level, one batch over all levels: the
+ASD CNN on upright patches, or the ORB embedding on patches derotated by
+the keypoint angle.  Per-level budgets follow the reference's geometric
 allocation (nfeatures * (1-q)/(1-q^L) * q^level with q = 1/scale_factor).
 """
 
@@ -50,13 +51,15 @@ def level_budgets(cfg: SlamConfig) -> List[int]:
     return budgets
 
 
-def make_extractor(cfg: SlamConfig, descriptor_fn):
+def make_extractor(cfg: SlamConfig, descriptor_fn, rotate_patches: bool = False):
     """Build the extractor: image [H, W] float32 in [0, 1] -> FrameFeatures,
     on the image's device.
 
     descriptor_fn: (patches [N, 32, 32]) -> [N, D] descriptors, e.g. an
-    ``ASDNet`` moved to the device.  (The reference's ``rotate_patches``
-    option belongs to the ORB path, which is not ported yet.)
+    ``ASDNet`` moved to the device, or ``ops.orb.apply``.
+    rotate_patches: derotate patches by the keypoint angle before the
+    descriptor (the ORB path; ASD patches stay upright like the reference's
+    computeSIFTDescriptors crop).
     """
     budgets = level_budgets(cfg)
     scales = cfg.scale_factors
@@ -75,9 +78,14 @@ def make_extractor(cfg: SlamConfig, descriptor_fn):
                 cell_cap=cfg.cell_cap,
                 border=cfg.edge_margin,
             )
-            all_ang.append(patches.ic_angle(img_l, xy, radius=cfg.orientation_radius))
-            all_pat.append(patches.extract_patches(
-                pyramid.gaussian_blur(img_l), xy, size=cfg.patch_size))
+            ang = patches.ic_angle(img_l, xy, radius=cfg.orientation_radius)
+            blurred = pyramid.gaussian_blur(img_l)
+            if rotate_patches:
+                pat = patches.extract_rotated_patches(blurred, xy, ang, size=cfg.patch_size)
+            else:
+                pat = patches.extract_patches(blurred, xy, size=cfg.patch_size)
+            all_ang.append(ang)
+            all_pat.append(pat)
             all_uv.append(xy * scales[li])
             all_lvl.append(torch.full((budgets[li],), li, dtype=torch.int32,
                                       device=image.device))

@@ -1,7 +1,8 @@
 """Dataset + camera-config ingestion.
 
-Port of the numpy path of ``asdslam_tpu/io/datasets.py`` (no native
-decoder: images are decoded by the numpy PNG/PGM readers below).
+Port of ``asdslam_tpu/io/datasets.py``: PNGs are decoded by the native
+library (``asdslam_torch/native``), or by the numpy reader below for the
+variants it does not take; PGMs by numpy.
 Camera-config parity with src/read_write_data_lib/src/read_write.cpp:27-60
 (`CHAMO::read_cam_info`): a text file whose first line is
 ``fx,fy,cx,cy,k1,k2,p1,p2`` and optional second line is 12 CSV values of the
@@ -22,6 +23,7 @@ from typing import Tuple
 import numpy as np
 
 from asdslam_torch.config import SlamConfig
+from asdslam_torch.native import loader as native
 
 
 def read_cam_info(path: str) -> dict:
@@ -56,13 +58,17 @@ def config_from_cam_info(cfg: SlamConfig, info: dict, width: int, height: int) -
 # Image decoding (no OpenCV/PIL dependency)
 # --------------------------------------------------------------------------- #
 def load_image_gray(path: str) -> np.ndarray:
-    """Grayscale float32 [0, 1] image from PNG or PGM (numpy decoders)."""
+    """Grayscale float32 [0, 1] image from PNG or PGM.  PNGs go through the
+    native decoder (the same values as ``_load_png_gray``, bit for bit); a
+    variant it does not take (not 8-bit, interlaced) goes to the numpy
+    reader, as in the reference."""
     with open(path, "rb") as f:
-        magic = f.read(8)
-    if magic[:2] in (b"P5", b"P2"):
+        data = f.read()
+    if data[:2] in (b"P5", b"P2"):
         return _load_pgm(path)
-    if magic == b"\x89PNG\r\n\x1a\n":
-        return _load_png_gray(path)
+    if data[:8] == b"\x89PNG\r\n\x1a\n":
+        out = native.decode_png_gray(data)
+        return out if out is not None else _load_png_gray(path)
     raise ValueError(f"unsupported image format: {path}")
 
 

@@ -1,10 +1,12 @@
 """Binary `.map` persistence with byte-level format parity.
 
 Port of ``asdslam_tpu/mapping/persistence.py``: the Python ``struct`` writer
-and reader (no native route), and the store's export/import with the
-features as torch tensors.  Files come out byte-identical to the JAX
-package's from the same store, quirks included: distortion written as 0,
-the keypoints written from ``uv_und``, descriptors 128 wide on import.
+and reader, the native route through ``asdslam_torch/native`` (the default,
+as in the reference; ``use_native=False`` is the struct route), and the
+store's export/import with the features as torch tensors.  Files come out
+byte-identical to the JAX package's from the same store, quirks included:
+distortion written as 0, the keypoints written from ``uv_und``, descriptors
+128 wide on import.
 
 It implements the exact on-disk layout of the reference's hand-rolled
 little-endian serializer (src/visual_map/src/visual_map_seri.cc:56-341 —
@@ -45,6 +47,7 @@ import torch
 from asdslam_torch.frontend.extractor import FrameFeatures
 from asdslam_torch.frontend.tracking import _np_mat_to_quat
 from asdslam_torch.mapping.map_store import MapStore, _pose_np
+from asdslam_torch.native import loader as native
 
 
 class VisualMapData:
@@ -65,7 +68,12 @@ class VisualMapData:
         self.edge_v2 = np.zeros(0, np.int32)
 
 
-def save_visual_map(data: VisualMapData, path: str):
+def save_visual_map(data: VisualMapData, path: str, use_native: bool = True):
+    """Write ``data`` to ``path``: through the native serializer unless
+    ``use_native`` is False or the map holds IMU payloads, which only the
+    struct writer takes; both write the same bytes."""
+    if use_native and native.map_save_native(path, data):
+        return
     with open(path, "wb") as f:
         w = f.write
         w(struct.pack("<3d", *data.gps_anchor))
@@ -118,7 +126,11 @@ def save_visual_map(data: VisualMapData, path: str):
             w(struct.pack("<2i", int(data.edge_v1[i]), int(data.edge_v2[i])))
 
 
-def load_visual_map(path: str) -> VisualMapData:
+def load_visual_map(path: str, use_native: bool = True) -> VisualMapData:
+    """Read a .map file: through the native deserializer unless
+    ``use_native`` is False (the struct reader)."""
+    if use_native:
+        return native.map_load_native(path)
     data = VisualMapData()
     with open(path, "rb") as f:
         def rd(fmt):

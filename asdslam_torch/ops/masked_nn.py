@@ -39,7 +39,7 @@ import torch
 from asdslam_torch import kernels
 
 BIG = 1e30
-DESC_DIM = 128  # the kernel's compiled descriptor width
+DESC_DIMS = (128, 256)  # the kernel's compiled descriptor widths: ASD, ORB
 TILE = 64       # entries per row tile and per column tile
 CELL = 32.0     # cell size of the ordering, px
 CELLS = 64      # cells per axis; positions beyond clamp to the edge cells
@@ -59,7 +59,7 @@ def _lib():
     lib = kernels.load("masked_nn")
     lib.masked_nn_launch.argtypes = _ARGTYPES
     lib.masked_nn_launch.restype = ctypes.c_int
-    lib.masked_nn_scratch_layout.argtypes = [ctypes.c_int, ctypes.c_int,
+    lib.masked_nn_scratch_layout.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                              ctypes.POINTER(ctypes.c_longlong),
                                              ctypes.POINTER(ctypes.c_int)]
     lib.masked_nn_scratch_layout.restype = ctypes.c_longlong
@@ -67,12 +67,12 @@ def _lib():
 
 
 @functools.lru_cache(maxsize=64)
-def _layout(n, m):
+def _layout(n, m, d):
     """(scratch bytes, {field: byte offset}, column splits) for N rows and
-    M columns, as the C source lays the scratch out."""
+    M columns of width d, as the C source lays the scratch out."""
     offsets = (ctypes.c_longlong * len(_FIELDS))()
     splits = ctypes.c_int()
-    nbytes = _lib().masked_nn_scratch_layout(n, m, offsets, ctypes.byref(splits))
+    nbytes = _lib().masked_nn_scratch_layout(n, m, d, offsets, ctypes.byref(splits))
     return nbytes, dict(zip(_FIELDS, offsets)), splits.value
 
 
@@ -267,7 +267,7 @@ _NAMES = ("desc_a", "desc_b", "valid_a", "valid_b", "uv_a", "uv_b", "rad2", "lev
           "levels_b")
 _DTYPES = (torch.float32, torch.float32, torch.bool, torch.bool, torch.float32,
            torch.float32, torch.float32, torch.int32, torch.int32)
-_scratch = {}  # (device index, stream, N, M) -> scratch buffer, reused in stream order
+_scratch = {}  # (device index, stream, N, M, d) -> scratch buffer, reused in stream order
 _lock = threading.Lock()  # guards _scratch and the launch counters
 _tls = threading.local()  # the calling thread's call-site label
 
@@ -284,13 +284,13 @@ def call_site(name: str):
         _tls.site = prev
 
 
-def _scratch_buffer(dev, stream, n, m):
-    """The scratch buffer of (device, stream, N, M), made at first use.  The
+def _scratch_buffer(dev, stream, n, m, d):
+    """The scratch buffer of (device, stream, N, M, d), made at first use.  The
     table is emptied before it passes 17 entries: a dropped buffer goes back
     to the allocator's pool of the stream it was made on, so a queued launch
     keeps what it reads."""
-    key = (dev.index, stream, n, m)
-    nbytes = _layout(n, m)[0]
+    key = (dev.index, stream, n, m, d)
+    nbytes = _layout(n, m, d)[0]
     with _lock:
         scratch = _scratch.get(key)
         if scratch is None:
@@ -303,13 +303,16 @@ def _scratch_buffer(dev, stream, n, m):
 def _launch(args, level_window, scratch=None):
     """Check the nine inputs, launch the kernel; returns ((idx, best,
     second), scratch buffer).  Without ``scratch`` the call reuses one
-    buffer per device, stream and shape (calls on one stream run in order)."""
+    buffer per device, stream and shape (calls on one stream run in order).
+    The descriptor width must be one the kernel is built for (DESC_DIMS)."""
     desc_a, desc_b = args[0], args[1]
     n, d = desc_a.shape
     m = desc_b.shape[0]
     dev = desc_a.device
     index = dev.index
-    shapes = ((n, DESC_DIM), (m, DESC_DIM), (n,), (m,), (n, 2), (m, 2), (n,), (n,), (m,))
+    if d not in DESC_DIMS:
+        raise ValueError(f"masked_nn: descriptor width {d}; the kernel is built for {DESC_DIMS}")
+    shapes = ((n, d), (m, d), (n,), (m,), (n, 2), (m, 2), (n,), (n,), (m,))
     for name, t, dtype, shape in zip(_NAMES, args, _DTYPES, shapes):
         # the common case in one cheap test; the full check names the fault
         if not (isinstance(t, torch.Tensor) and t.dtype is dtype and t.shape == shape
@@ -323,7 +326,7 @@ def _launch(args, level_window, scratch=None):
     # .cuda_stream, without building a Stream object)
     stream = torch._C._cuda_getCurrentRawStream(index)
     if scratch is None:
-        scratch = _scratch_buffer(dev, stream, n, m)
+        scratch = _scratch_buffer(dev, stream, n, m, d)
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
     idx, best, second = out[0].view(torch.int32), out[1], out[2]
     base = out.data_ptr()
@@ -345,7 +348,8 @@ def masked_nn(desc_a, desc_b, valid_a, valid_b, uv_a=None, uv_b=None, rad2=None,
               levels_a=None, levels_b=None, level_window=(-1e9, 1e9)):
     """Fused masked NN search.
 
-    desc_a [N, 128] / desc_b [M, 128] float32; valid_a [N] / valid_b [M]
+    desc_a [N, d] / desc_b [M, d] float32, d in DESC_DIMS on CUDA (any d
+    on the CPU); valid_a [N] / valid_b [M]
     bool; uv_a [N, 2] / uv_b [M, 2] float32; rad2 [N] float32, the SQUARED
     window radius per row (None: no window); levels_a [N] / levels_b [M]
     int32; level_window bounds levels_b[j] - levels_a[i], inclusive.
@@ -381,7 +385,7 @@ def masked_nn_tiles(desc_a, desc_b, valid_a, valid_b, uv_a, uv_b, rad2, levels_a
     returning its outputs and its own preparation as a ``Prepared``, for
     checks of the culling on the card."""
     n, m = desc_a.shape[0], desc_b.shape[0]
-    nbytes, offsets, _ = _layout(n, m)
+    nbytes, offsets, _ = _layout(n, m, desc_a.shape[1])
     buf = torch.empty(nbytes, dtype=torch.uint8, device=desc_a.device)
     out, _ = _launch((desc_a, desc_b, valid_a, valid_b, uv_a, uv_b, rad2, levels_a, levels_b),
                      level_window, scratch=buf)

@@ -49,6 +49,14 @@ from asdslam_torch.utils.tracing import Tracer
 _mat_to_quat_np = _np_mat_to_quat
 
 
+ORB_REFUSAL = (
+    "cfg.use_orb: the System refuses the ORB descriptor because the reference's map "
+    "store is 128 wide (asdslam_tpu/mapping/map_store.py:76, 202), so its own use_orb "
+    "System fails on its first bootstrap; ORB is ported as functions "
+    "(asdslam_torch/ops/orb.py) and as the fused step's descriptor "
+    "(make_extractor(cfg, orb.apply, rotate_patches=True)) (ROADMAP: Queue 3, use_orb)")
+
+
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
 
@@ -86,13 +94,7 @@ class System:
         extending it, unless ``cfg.loc_extend_map`` (System(loop_for_loc) /
         TrackLocalization parity)."""
         if descriptor_fn is None and cfg.use_orb:
-            # the reference's own use_orb System fails too: its store keeps
-            # 128-wide descriptors (asdslam_tpu/mapping/map_store.py:76), the
-            # ORB descriptor is 256 wide, so its first bootstrap raises at
-            # map_store.py:202
-            raise _not_ported("the ORB descriptor (cfg.use_orb; the reference's use_orb "
-                              "System fails on 256-wide descriptors in a 128-wide store)",
-                              "ORB, Queue 1 item 15")
+            raise NotImplementedError(ORB_REFUSAL)
         self.localization_mode = localization_mode
         self.cfg = cfg
         self.device = torch.device(device)

@@ -105,7 +105,27 @@ Phases, each of which raises on failure (exit code != 0):
    c. run_slam_torch.py with 9a's weights over 20 frames of phase 5's
       corridor as a KITTI layout: the tracked share under phase 8a's bar,
       the keyframes, masked_nn's launches by site, and masked_nn held
-      against its plain version on one of its local-map searches.
+      against its plain version on one of its local-map searches;
+10. the ORB descriptor path, K1 at d = 256, the assignment engines and the
+   native host library:
+   a. K1 at d = 256 against its plain version as in phase 2 (twice bitwise,
+      the culling from its own tile summaries) on the motion and local-map
+      shapes, the tie problem, every edge case, and a motion search between
+      the ORB features of two corridor frames with duplicated columns,
+      where the kernel must equal the plain version bit for bit;
+   b. the fused tracking step with the ORB extractor (make_extractor(cfg,
+      orb.apply, rotate_patches=True) + make_track_step) at the same full
+      width over 8 chained frames from phase 3's hand-built state: 24 K1
+      launches at d = 256, n_inliers and the pose error under bars from the
+      JAX package's same chain on a CPU, one frame against the plain
+      matcher, that frame's two searches against the plain version bit for
+      bit; frames/s and the ORB extraction's ms beside the ASD one's;
+   c. both assignment engines on a masked 500x400 score matrix on the card,
+      equal to the port's CPU result;
+   d. the native library: its build log, phase 8a's 30 PNGs decoded by it
+      bit for bit as by the numpy decoder, the prefetching loader over them
+      in order, phase 5's map written by it byte for byte as by the struct
+      writer and read back, and phase 8a having decoded through it.
 
 Prints a `kernels` JSON line before the last line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -201,6 +221,18 @@ N_POOL, N_HELD_OUT, N_STEPS, TRAIN_BATCH = 16384, 4000, 300, 512
 N_TOUR_POINTS, N_TOUR_STEPS, N_TRAINED = 512, 20, 20
 REF_TRAIN = dict(fpr95_asd_trained=0.0003, fpr95_asd_random=0.0838, fpr95_patch_classical=0.0318)
 TRAIN_FPR_BAND = 0.0025
+# Phase 10b: the JAX package's fused step with the ORB extractor on the same
+# hand-built state and 8 chained corridor frames at the KITTI shape, on a CPU
+# (python tests/test_torch_orb.py --reference-phase10): n_inliers per frame
+# and the largest |pose - ground truth| per frame.  Each frame's n_inliers is
+# held to 90% of the JAX package's, and the pose error to twice its worst
+# frame or 0.01 (twice the 5e-3 bar of tests/test_torch_orb.py between the
+# packages' poses), whichever is larger.
+REF_ORB = dict(n_inliers=[1982, 1984, 1981, 1823, 1770, 1738, 1671, 1624],
+               max_pose_err=0.003814)
+ORB_INLIER_SHARE = 0.9
+ORB_POSE_BAR = max(2 * REF_ORB["max_pose_err"], 0.01)
+ASSIGN_SHAPE = (500, 400)
 
 
 def log(*a):
@@ -264,10 +296,10 @@ def nn_problem(n, m, d=128, seed=0, ties=True):
                 rad2=radius * radius)
 
 
-def edge_problem(case):
+def edge_problem(case, d=128):
     """The contract's edge cases, built on the tie problem."""
     shape = {"ragged m 1100x2001": (1100, 2001), "large 20000x20000": (20000, 20000)}
-    p = nn_problem(*shape.get(case, (300, 257)), ties=True, seed=11)
+    p = nn_problem(*shape.get(case, (300, 257)), d=d, ties=True, seed=11)
     r = np.sqrt(p["rad2"])
     if case == "all rows gated out":
         r[:] = 0.0
@@ -330,12 +362,13 @@ def k1_args(prob):
             (-1.0, 1.0))
 
 
-def check_k1(case, args, ratio=0.8, max_dist=1.2, best_tol=5e-5):
+def check_k1(case, args, ratio=0.8, max_dist=1.2, best_tol=5e-5, bitwise=False):
     """Kernel vs plain on one set of arguments; raises on disagreement (|d|
-    above 5e-5, or above ``best_tol`` on ``best``), on outputs that differ
-    between two runs, or on a culled tile pair that holds a gated-in pair.
-    Returns (the larger of max |d best| and max |d second|, gated-in pairs,
-    share of live tile pairs)."""
+    above 5e-5, or above ``best_tol`` on ``best``; with ``bitwise``, any
+    difference in idx, best or second), on outputs that differ between two
+    runs, or on a culled tile pair that holds a gated-in pair.  Returns (the
+    larger of max |d best| and max |d second|, gated-in pairs, share of live
+    tile pairs)."""
     import torch
     from asdslam_torch.ops import masked_nn as k1
 
@@ -346,6 +379,13 @@ def check_k1(case, args, ratio=0.8, max_dist=1.2, best_tol=5e-5):
     for name, x, y in zip(("idx", "best", "second"), (idx, best, second), again):
         if not torch.equal(x, y):
             raise AssertionError(f"{case}: {name} differs between two runs")
+
+    if bitwise:
+        for name, x, y in zip(("idx", "best", "second"), (idx, best, second),
+                              (pidx, pbest, psecond)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{case}: {name} differs from the plain version on "
+                                     f"{int((x != y).sum())} rows (bitwise bar)")
 
     def ok_of(b, s):
         return (b <= max_dist) & (b < ratio * s)
@@ -371,9 +411,10 @@ def check_k1(case, args, ratio=0.8, max_dist=1.2, best_tol=5e-5):
     if culled:
         raise AssertionError(f"{case}: culled tile pairs hold {culled} gated-in pairs")
     pairs_in, share = int(gated.sum()), float(live.float().mean())
-    log(f"K1 {case}: N={args[0].shape[0]} M={args[1].shape[0]} ok rows {int(ok.sum())}, "
-        f"gated-in rows {int(gated_in.sum())}, gated-in pairs {pairs_in}, live tile pairs "
-        f"{share:.4f}, max|d best| {err:.3g}, max|d second| {serr:.3g}, two runs bitwise equal")
+    log(f"K1 {case}: N={args[0].shape[0]} M={args[1].shape[0]} d={args[0].shape[1]} ok rows "
+        f"{int(ok.sum())}, gated-in rows {int(gated_in.sum())}, gated-in pairs {pairs_in}, live tile pairs "
+        f"{share:.4f}, max|d best| {err:.3g}, max|d second| {serr:.3g}, two runs bitwise equal"
+        + (", bitwise equal to the plain version" if bitwise else ""))
     return max(err, serr), pairs_in, share
 
 
@@ -459,10 +500,33 @@ def record_searches(step, frames_u8, state, cand):
     return calls[0], calls[2]
 
 
+def orb_problem(cfg, extract, frames_u8, device):
+    """masked_nn's arguments for a motion search between the features that
+    the ORB extractor ``extract`` finds in two corridor frames (rows: frame
+    0, columns: frame 1; windows of search_radius_motion * 1.2^level px),
+    with columns 100<-3 and M-1<-7 duplicated.  ORB entries are +-1/16, so
+    every dot and norm is exact in bf16 and f32 and distances tie wherever
+    Hamming distances do."""
+    import torch
+
+    fa, fb = [extract(f.to(device).to(torch.float32) * (1.0 / 255.0)) for f in frames_u8[:2]]
+    desc_b, valid_b = fb.desc.clone(), fb.valid.clone()
+    m = desc_b.shape[0]
+    desc_b[100], desc_b[m - 1] = desc_b[3], desc_b[7]
+    valid_b[100], valid_b[m - 1] = valid_b[3], valid_b[7]
+    scales = torch.tensor(cfg.scale_factors, device=device)
+    r = cfg.search_radius_motion * scales[fa.level.long()]
+    return (fa.desc.contiguous(), desc_b, fa.valid, valid_b, fa.uv.contiguous(),
+            fb.uv.contiguous(), (r * r).contiguous(), fa.level, fb.level, (-1.0, 1.0))
+
+
 # --------------------------------------------------------------------------- #
 # The main path: the fused tracking step at full width
 # --------------------------------------------------------------------------- #
-def build_tracking(cfg, device):
+def build_tracking(cfg, device, descriptor_fn=None, rotate_patches=False):
+    """The main path's extractor, frames and hand-built state; the trained
+    ASDNet unless ``descriptor_fn`` is given (the ORB path: orb.apply with
+    ``rotate_patches``)."""
     import torch
     from asdslam_torch.frontend import track_step as ts
     from asdslam_torch.frontend.extractor import make_extractor
@@ -471,10 +535,11 @@ def build_tracking(cfg, device):
     from asdslam_torch.models.asdnet import ASDNet, load_weights
 
     K = torch.tensor([[cfg.fx, 0, cfg.cx], [0, cfg.fy, cfg.cy], [0, 0, 1.0]])
-    net = ASDNet().to(device)
-    weights = os.path.join(os.path.dirname(os.path.abspath(__file__)), "asdnet_weights.pkl")
-    net.load_state_dict(load_weights(weights))
-    extract = make_extractor(cfg, net)
+    if descriptor_fn is None:
+        descriptor_fn = ASDNet().to(device)
+        weights = os.path.join(os.path.dirname(os.path.abspath(__file__)), "asdnet_weights.pkl")
+        descriptor_fn.load_state_dict(load_weights(weights))
+    extract = make_extractor(cfg, descriptor_fn, rotate_patches=rotate_patches)
 
     step_m, turn = STEP_M, TURN
     frames, poses = synthetic.render_sequence(
@@ -1554,6 +1619,7 @@ def phase8(cfg, device, card, errs, k1_cases, euroc_scale=1.0):
     from asdslam_torch.io import synthetic
     from asdslam_torch.loop import vocab as vocab_mod
     from asdslam_torch.mapping import persistence
+    from asdslam_torch.native import loader as native
     from asdslam_torch.utils import evaluate
 
     weights = os.path.join(os.path.dirname(os.path.abspath(__file__)), "asdnet_weights.pkl")
@@ -1572,6 +1638,7 @@ def phase8(cfg, device, card, errs, k1_cases, euroc_scale=1.0):
             ("ply", "map.ply"), ("euroc", "euroc.json"))}
         kitti = ["--dataset", "kitti", "--seq_dir", seq, "--camera_config", cam,
                  "--asdnet_weights", weights]
+        decoded = native.decode_png_gray.decoded
         mapped, text, run_a, sec = run_entry(run_slam_torch.main, kitti + dev + [
             "--output_addr", paths["traj"], "--save_map", paths["map"], "--save_voc",
             paths["voc"], "--save_result_dir", paths["res"], "--viz_dir", paths["viz"],
@@ -1602,12 +1669,17 @@ def phase8(cfg, device, card, errs, k1_cases, euroc_scale=1.0):
             raise AssertionError(f"8a: visualization snapshots {snaps}")
         if run_a["by_site"].get("step", 0) < 1 or run_a["by_site"].get("fuse", 0) < 1:
             raise AssertionError(f"8a: masked_nn launches {run_a['by_site']}")
+        decoded = native.decode_png_gray.decoded - decoded
+        if decoded < N_ENTRY:
+            raise AssertionError(f"8a: {decoded} of {N_ENTRY} PNGs went through the native decoder")
         out["8a"] = dict(line=line, keyframes_bar=ENTRY_KF_RANGE, ref=REF_ENTRY, seconds=sec,
+                         native_decodes=decoded,
                          result_bytes=res_files, viz=snaps, online_vocab=os.path.exists(
                              paths["voc"]), launches=run_a["launches"], by_site=run_a["by_site"])
         log(f"8a run_slam_torch.py --dataset kitti ({N_ENTRY} PNGs at {cfg.image_width}x"
             f"{cfg.image_height}): {line}; {n_lines} trajectory lines; the map reproduced byte for "
-            f"byte; result files {res_files}; snapshots {snaps}; online vocabulary saved "
+            f"byte; {decoded} PNGs decoded natively; result files {res_files}; snapshots {snaps}; "
+            f"online vocabulary saved "
             f"{out['8a']['online_vocab']}; the JAX package's run_slam.py on the same directory on "
             f"a CPU {REF_ENTRY['run_slam']}; masked_nn launches {run_a['launches']} "
             f"{run_a['by_site']}; {sec:.1f} s [{card}]")
@@ -1690,6 +1762,178 @@ def phase8(cfg, device, card, errs, k1_cases, euroc_scale=1.0):
             f"on a CPU {REF_EUROC}); {result['fps']} frames/s, {result['fps_tracking']} without "
             f"the render span ({render:.2f} s over {N_EUROC} renders); masked_nn launches "
             f"{run_e['launches']} {run_e['by_site']}; {sec:.1f} s [{card}]")
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Phase 10: ORB with K1 at d = 256, the assignment engines, the native library
+# --------------------------------------------------------------------------- #
+def phase10(cfg, device, card, errs, k1_cases, asd_extract_ms, mapped, native_decodes_8a):
+    """10a-10d (module docstring).  ``asd_extract_ms`` is phase 4's ASD
+    extraction, ``mapped`` phase 5's second System, ``native_decodes_8a``
+    the PNGs phase 8a decoded natively.  Adds 10a's and 10b's K1 checks to
+    ``k1_cases`` / ``errs`` and returns the numbers for the JSON line."""
+    import tempfile
+    import torch
+    from asdslam_torch.frontend import track_step as ts
+    from asdslam_torch.io import datasets, synthetic
+    from asdslam_torch.mapping import persistence
+    from asdslam_torch.native import build as native_build
+    from asdslam_torch.native import loader as native
+    from asdslam_torch.ops import assignment, orb
+    from asdslam_torch.ops import masked_nn as k1
+
+    out = {}
+    # ---- 10a: K1 at d = 256 against its plain version ----------------------- #
+    t0 = time.perf_counter()
+    problems = [(f"{case} d256", nn_problem(n, m, d=256, ties=ties, seed=n + m))
+                for case, n, m, ties in (("motion 2000x2000x256", 2000, 2000, False),
+                                         ("local-map 8192x2000x256", 8192, 2000, False),
+                                         ("ties 300x257", 300, 257, True))]
+    problems += [(f"{case} d256", edge_problem(case, d=256)) for case in EDGE_CASES]
+    for case, prob in problems:
+        args = k1_args(prob)
+        err, pairs_in, share = check_k1(case, args)
+        errs.append(err)
+        k1_cases[case] = (args, pairs_in, share)
+
+    # ---- 10b: the fused step with the ORB extractor ------------------------- #
+    K, extract, frames_u8, poses, cand, state = build_tracking(
+        cfg, device, descriptor_fn=orb.apply, rotate_patches=True)
+    if cand.desc.shape[1] != orb.ORB_DIM or state["feat"].desc.shape[1] != orb.ORB_DIM:
+        raise AssertionError(f"10b: descriptors {tuple(cand.desc.shape)}, not 256 wide")
+    args = orb_problem(cfg, extract, frames_u8, device)
+    err, pairs_in, share = check_k1("ORB corridor features d256", args, bitwise=True)
+    errs.append(err)
+    k1_cases["ORB corridor features d256"] = (args, pairs_in, share)
+    out["10a_seconds"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    step = ts.make_track_step(cfg, K, extract, device=device)
+    torch.cuda.synchronize()
+    k1.masked_nn.launches = 0
+    results = run_chain(step, frames_u8, state, cand, 1, N_CHAINED)
+    torch.cuda.synchronize()
+    launches = k1.masked_nn.launches
+    if launches != 3 * N_CHAINED:
+        raise AssertionError(f"10b: masked_nn launched {launches} times in {N_CHAINED} frames")
+    for i, res in enumerate(results):
+        for name, x in [("pose", res.pose), ("velocity", res.velocity)] + list(
+                res.next_geom._asdict().items()):
+            if x.is_floating_point() and not torch.isfinite(x).all():
+                raise AssertionError(f"10b frame {i + 1}: non-finite {name}")
+    n_in = [int(r.n_inliers) for r in results]
+    pose_err = [float((r.pose - poses[i + 1]).abs().max()) for i, r in enumerate(results)]
+    log(f"10b ORB fused step: {N_CHAINED} chained frames, masked_nn launches {launches} at "
+        f"d = 256, n_inliers {n_in} (the JAX package on a CPU {REF_ORB['n_inliers']}), max "
+        f"|pose - ground truth| {[round(e, 4) for e in pose_err]} (bar {ORB_POSE_BAR:.4f}; "
+        f"the JAX package's worst {REF_ORB['max_pose_err']})")
+    floor = [max(cfg.min_localmap_matches, ORB_INLIER_SHARE * r) for r in REF_ORB["n_inliers"]]
+    if any(n < f for n, f in zip(n_in, floor)) or max(pose_err) > ORB_POSE_BAR:
+        raise AssertionError(f"10b: n_inliers {n_in} (floor {floor}) or pose error {pose_err}")
+    plain_step = ts.make_track_step(cfg.replace(use_pallas_match=False), K, extract,
+                                    device=device)
+    (res_k,) = run_chain(step, frames_u8, state, cand, 1, 1)
+    (res_p,) = run_chain(plain_step, frames_u8, state, cand, 1, 1)
+    src_eq = float((res_k.src == res_p.src).float().mean())
+    dpose = float((res_k.pose - res_p.pose).abs().max())
+    log(f"10b kernel vs plain matcher, one frame: src equal on {src_eq:.4f}, max|d pose| {dpose:.3g}")
+    if src_eq < 0.99 or dpose > 1e-3:
+        raise AssertionError("10b: the ORB step disagrees with its plain-matcher version")
+    for case, args in zip(("ORB motion 2000x2000x256", "ORB local-map 8192x2000x256"),
+                          record_searches(step, frames_u8, state, cand)):
+        args = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in k1_full_args(args))
+        err, pairs_in, share = check_k1(case, args, bitwise=True)
+        errs.append(err)
+        k1_cases[case] = (args, pairs_in, share)
+    run_chain(step, frames_u8, state, cand, 1, 2)  # warm
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    int(run_chain(step, frames_u8, state, cand, 1, N_CHAINED)[-1].n_inliers)
+    torch.cuda.synchronize()
+    fps = N_CHAINED / (time.perf_counter() - t1)
+    img = frames_u8[1].to(device).float() / 255.0
+    orb_ms = time_ms(lambda: extract(img), 5)
+    log(f"10b ORB fused step: {fps:.2f} frames/s over {N_CHAINED} chained frames; extraction "
+        f"{orb_ms:.3f} ms a frame with ORB, {asd_extract_ms:.3f} ms with ASDNet (phase 4; CUDA "
+        f"events) [{card}]")
+    out["10b"] = dict(frames=N_CHAINED, launches=launches, n_inliers=n_in, pose_err=pose_err,
+                      ref=REF_ORB, pose_bar=ORB_POSE_BAR, src_equal_plain=src_eq,
+                      dpose_plain=dpose, fps=fps, orb_extract_ms=orb_ms,
+                      asd_extract_ms=asd_extract_ms, seconds=time.perf_counter() - t0)
+
+    # ---- 10c: the assignment engines on the card ----------------------------- #
+    g = np.random.default_rng(10)
+    n, m = ASSIGN_SHAPE
+    score = torch.tensor((g.integers(0, 50, (n, m)) / 50).astype(np.float32))
+    valid = torch.tensor(g.uniform(size=(n, m)) < 0.3)
+    out["10c"] = {}
+    for name, fn in (("greedy", assignment.greedy_assignment),
+                     ("non_exclusive", assignment.non_exclusive_assignment)):
+        cpu = fn(score, valid, 0.1)
+        sc, vc = score.to(device), valid.to(device)
+        gpu = fn(sc, vc, 0.1)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b.cpu()) for a, b in zip(cpu, gpu)):
+            raise AssertionError(f"10c: {name} on the card differs from the CPU")
+        ms = time_ms(lambda: fn(sc, vc, 0.1), 3)
+        out["10c"][name] = dict(assigned=int(cpu[-1].sum()), ms=ms)
+        log(f"10c {name}_assignment {n}x{m}: equal to the CPU result, {int(cpu[-1].sum())} rows "
+            f"assigned, {ms:.3f} ms a call [{card}]")
+
+    # ---- 10d: the native library ----------------------------------------------- #
+    t0 = time.perf_counter()
+    if not native.native_available():
+        raise AssertionError("10d: the native library is not available")
+    log(f"10d native library {native_build.library_path().name}; its build in this process:")
+    for line in (native.BUILD_LOG or "(built before this process)").splitlines():
+        log("  " + line)
+    if native_decodes_8a < N_ENTRY:
+        raise AssertionError(f"10d: phase 8a decoded {native_decodes_8a} PNGs natively")
+    K = torch.tensor([[cfg.fx, 0, cfg.cx], [0, cfg.fy, cfg.cy], [0, 0, 1.0]])
+    frames, _ = synthetic.render_sequence(K, N_ENTRY, cfg.image_height, cfg.image_width,
+                                          step=STEP_M, turn=TURN, device=device)
+    entry_u8 = [(f * 255.0).clamp(0, 255).to(torch.uint8).cpu().numpy() for f in frames]
+    with tempfile.TemporaryDirectory() as tmp:
+        seq, _ = write_kitti_dir(tmp, entry_u8, cfg)
+        paths = [os.path.join(seq, "image_0", f"{i:06d}.png") for i in range(N_ENTRY)]
+        t1 = time.perf_counter()
+        decoded = [datasets.load_image_gray(p) for p in paths]
+        decode_ms = (time.perf_counter() - t1) * 1e3 / N_ENTRY
+        for p, img, u8 in zip(paths, decoded, entry_u8):
+            if not np.array_equal(img, datasets._load_png_gray(p)) or \
+                    not np.array_equal(img, u8.astype(np.float32) / 255.0):
+                raise AssertionError(f"10d: {p} decodes differently from the numpy decoder")
+        loader = native.PrefetchLoader(paths, cfg.image_height, cfg.image_width)
+        got = list(loader)
+        loader.close()
+        if len(got) != N_ENTRY or not all(np.array_equal(a, b) for a, b in zip(got, decoded)):
+            raise AssertionError("10d: the prefetching loader's frames differ or are out of order")
+        data = persistence.export_map(mapped.store, mapped.cfg, mapped.cfg.covis_weight_posegraph)
+        nat, ref = os.path.join(tmp, "native.map"), os.path.join(tmp, "struct.map")
+        t1 = time.perf_counter()
+        if not native.map_save_native(nat, data):
+            raise AssertionError("10d: map_save_native declined phase 5's map")
+        save_ms = (time.perf_counter() - t1) * 1e3
+        persistence.save_visual_map(data, ref, use_native=False)
+        with open(nat, "rb") as fa, open(ref, "rb") as fb:
+            nbytes = len(fa.read())
+            fa.seek(0)
+            if fa.read() != fb.read():
+                raise AssertionError("10d: the native .map differs from the struct writer's")
+        back = native.map_load_native(nat)
+        again = os.path.join(tmp, "again.map")
+        persistence.save_visual_map(back, again, use_native=False)
+        with open(again, "rb") as fa, open(ref, "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError("10d: the map read back natively does not write the same bytes")
+    out["10d"] = dict(native_decodes_8a=native_decodes_8a, pngs=N_ENTRY, decode_ms=decode_ms,
+                      map_bytes=nbytes, map_save_ms=save_ms, seconds=time.perf_counter() - t0)
+    log(f"10d {N_ENTRY} PNGs at {cfg.image_width}x{cfg.image_height} decoded natively bit for bit "
+        f"as by the numpy decoder ({decode_ms:.2f} ms a frame, load_image_gray), the prefetching "
+        f"loader in order; phase 5's map ({nbytes} bytes, {len(data.frames)} keyframes) written "
+        f"natively byte for byte as by the struct writer ({save_ms:.1f} ms) and read back; phase "
+        f"8a decoded {native_decodes_8a} PNGs natively [{card}]")
     return out
 
 
@@ -1864,6 +2108,13 @@ def main():
     training["seconds"] = time.perf_counter() - t0
     launches_train = training["9c"]["launches"]
     stamp("phase 9")
+    # ---- 10. ORB with K1 at d = 256, assignment, the native library -------- #
+    t0 = time.perf_counter()
+    orb_path = phase10(cfg, device, card, errs, k1_cases, layers["extract"], second["system"],
+                       entry["8a"]["native_decodes"])
+    orb_path["seconds"] = time.perf_counter() - t0
+    launches_orb = orb_path["10b"]["launches"]
+    stamp("phase 10")
 
     # K1 by shape.  Everything that reads a clock comes before the first use
     # of torch.profiler: once it has traced, later launches of the process
@@ -1872,10 +2123,12 @@ def main():
     for case in ("motion 2000x2000", "local-map 8192x2000",
                  "frame 1 motion search", "frame 1 local-map search", "keyframe fuse",
                  "loop guided search", "loop fuse", "relocalization search",
-                 "EuRoC proxy local-map search", "trained weights local-map search"):
+                 "EuRoC proxy local-map search", "trained weights local-map search",
+                 "motion 2000x2000x256 d256", "local-map 8192x2000x256 d256",
+                 "ORB motion 2000x2000x256", "ORB local-map 8192x2000x256"):
         args, pairs_in, share = k1_cases[case]
         bound, bound_by = k1_bound_ms(args, pairs_in)
-        shapes.append(dict(shape=case, n=args[0].shape[0], m=args[1].shape[0],
+        shapes.append(dict(shape=case, n=args[0].shape[0], m=args[1].shape[0], d=args[0].shape[1],
                            ms=time_ms(lambda: k1.masked_nn(*args), 50),
                            plain_ms=time_ms(lambda: k1.masked_nn_plain(*args), 5),
                            bound_ms=bound, bound_by=bound_by,
@@ -1905,7 +2158,7 @@ def main():
         "source": "asdslam_torch/csrc/masked_nn.cu",
         "replaces": "asdslam_tpu/ops/pallas_match.py:42",
         "launches": (launches + launches_system + default["launches"] + launches_loc
-                     + launches_entry + launches_train),
+                     + launches_entry + launches_train + launches_orb),
         "max_abs_err": max(errs),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
@@ -1930,9 +2183,10 @@ def main():
                              **{f"entry_points_{k}_by_site": entry[k]["by_site"]
                                 for k in ("8a", "8c", "8e")},
                              "trained_weights": launches_train,
-                             "trained_weights_by_site": training["9c"]["by_site"]},
+                             "trained_weights_by_site": training["9c"]["by_site"],
+                             "orb_chained_step": launches_orb},
         "default_config": default, "localization": localization, "entry_points": entry,
-        "training": training,
+        "training": training, "orb_path": orb_path,
         "system": {"frames": N_SYSTEM, "fps": system_fps,
                    "frame_ms_median": float(np.median(steady)),
                    "keyframe_frame_ms": [float(x) for x in frame_ms[is_kf]],

@@ -38,6 +38,8 @@ MODULES = (
     "io/kitti_proxy.py", "io/euroc_proxy.py", "viz.py",
     # training
     "models/train.py", "models/proxy_pairs.py",
+    # ORB, the assignment engines and the native host library
+    "ops/orb.py", "ops/patches.py", "ops/assignment.py", "native/build.py", "native/loader.py",
 )
 
 
@@ -68,6 +70,8 @@ def test_files_found():
     for script in SCRIPTS:
         assert script in names, script
     assert (ROOT / "asdslam_torch" / "csrc" / "masked_nn.cu").exists()
+    for source in ("imageio.cc", "mapio.cc", "prefetch.cc"):
+        assert (ROOT / "asdslam_torch" / "native" / source).exists(), source
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

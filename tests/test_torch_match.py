@@ -21,6 +21,7 @@ from asdslam_torch.io import synthetic as tsyn
 from asdslam_torch.models import asdnet as tnet
 from asdslam_torch.ops import masked_nn as tk1
 from asdslam_torch.ops import match as tmatch
+from asdslam_torch.ops import orb as torb
 
 WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(__file__)), "asdnet_weights.pkl")
 
@@ -375,7 +376,7 @@ def test_masked_nn_kernel_matches_plain_on_cuda(frame_problem):
 
 
 def test_scratch_cache_is_bounded_and_keyed_by_shape(monkeypatch):
-    """The wrapper's scratch buffers: one per (device, stream, N, M), so a
+    """The wrapper's scratch buffers: one per (device, stream, N, M, d), so a
     call never gets a buffer sized for another shape, and the table is
     emptied before it passes 17 entries (the caching allocator hands a freed
     buffer's memory only to later work of the same stream, so a queued launch
@@ -389,7 +390,7 @@ def test_scratch_cache_is_bounded_and_keyed_by_shape(monkeypatch):
             return 0
 
     monkeypatch.setattr(tk1, "_lib", lambda: Lib)
-    monkeypatch.setattr(tk1, "_layout", lambda n, m: (64 * (n + m), {}, 1))
+    monkeypatch.setattr(tk1, "_layout", lambda n, m, d: (64 * (n + m), {}, 1))
     monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 7, raising=False)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: None)  # a CPU tensor has no index
     monkeypatch.setattr(tk1, "_scratch", {})
@@ -402,8 +403,117 @@ def test_scratch_cache_is_bounded_and_keyed_by_shape(monkeypatch):
                 torch.zeros(n, dtype=torch.int32), torch.zeros(m, dtype=torch.int32)]
         _, scratch = tk1._launch(tuple(args), (-1.0, 1.0))
         assert scratch.numel() == 64 * (n + 8)
-        if n in seen and (None, 7, n, 8) in tk1._scratch:
-            assert tk1._scratch[(None, 7, n, 8)] is scratch
+        if n in seen and (None, 7, n, 8, 128) in tk1._scratch:
+            assert tk1._scratch[(None, 7, n, 8, 128)] is scratch
         seen[n] = scratch
         assert len(tk1._scratch) <= 17
     assert len(calls) == 37
+
+
+# --------------------------------------------------------------------------- #
+# d = 256: the ORB embedding's width
+# --------------------------------------------------------------------------- #
+def _orb_problem(seed, n=300, m=257):
+    """A search over ORB descriptors (+-1/16) of patches quantised to four
+    grey levels, so Hamming distances, hence squared distances, tie
+    everywhere: columns 100<-3 and m-1<-7 duplicated, rows equal to column
+    3, windows and levels of _problem."""
+    p = _problem(seed, n=n, m=m, d=256)
+    g = np.random.default_rng(seed + 1)
+    base = np.floor(g.uniform(size=(40, 32, 32)) * 4).astype(np.float32) / 4
+    pick_a, pick_b = g.integers(0, 40, n), g.integers(0, 40, m)
+    noise = lambda k: (g.uniform(size=(k, 32, 32)) < 0.03).astype(np.float32) / 4
+    pa = np.clip(base[pick_a] + noise(n), 0, 1)
+    pb = np.clip(base[pick_b] + noise(m), 0, 1)
+    p["desc_a"] = torb.apply(torch.tensor(pa)).numpy()
+    p["desc_b"] = torb.apply(torch.tensor(pb)).numpy()
+    p["desc_b"][100], p["desc_b"][m - 1] = p["desc_b"][3], p["desc_b"][7]
+    p["desc_a"][:8] = p["desc_b"][3]
+    return p
+
+
+@pytest.mark.parametrize("source", ["float", "orb"])
+def test_masked_nn_plain_matches_pallas_kernel_d256(source):
+    """The plain search at d = 256 against the reference kernel in Pallas
+    interpret mode.  Float problem: ok exact, idx exact on rows whose best
+    is clear of the second, best and second within 1e-5.  ORB problem: every
+    sum is a multiple of 2^-8, so idx, best and second are equal bit for
+    bit, ties (first-occurrence argmin, duplicate columns) on every row."""
+    p = _problem(21, d=256) if source == "float" else _orb_problem(22)
+    p["valid_a"][:40] = False
+    args = _k1_args(p)
+    plain = tk1.masked_nn(*args, LEVEL_WINDOW)
+    ref = _jax_k1(args, LEVEL_WINDOW)
+    _assert_k1_close(plain, ref, 1e-5)
+    assert (plain[1] < tk1.BIG).sum() > 50 and (plain[1][:40] == tk1.BIG).all()
+    if source == "orb":
+        for t, j in zip(plain, ref):
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+        best, second = plain[1].numpy(), plain[2].numpy()
+        live = best < tk1.BIG
+        assert (best[live] * 64 == np.round(best[live] * 64)).all()  # 4 * hamming / 256
+        # tied best and second beyond the 8 rows equal to a duplicated column (17 here)
+        assert (second[8:][live[8:]] == best[8:][live[8:]]).sum() >= 10
+        # the tile walk (the kernel's ordering and culling) agrees bit for bit too
+        for t, w in zip(plain, _tile_walk(*args, LEVEL_WINDOW)[:3]):
+            assert torch.equal(t, w)
+
+
+@pytest.mark.gpu
+def test_masked_nn_kernel_matches_plain_on_cuda_d256():
+    """The d = 256 build against the plain version: the float problem
+    within 5e-5 (ok exact), the ORB problem bit for bit; two runs equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    for case, p in (("float", _problem(21, n=2000, m=2000, d=256)), ("orb", _orb_problem(22))):
+        args = [a.cuda() for a in _k1_args(p)]
+        before = tk1.masked_nn.launches
+        got = tk1.masked_nn(*args, LEVEL_WINDOW)
+        assert tk1.masked_nn.launches == before + 1
+        again = tk1.masked_nn(*args, LEVEL_WINDOW)
+        plain = tk1.masked_nn(*[a.cpu() for a in args], LEVEL_WINDOW)
+        torch.cuda.synchronize()
+        for x, y in zip(got, again):
+            assert torch.equal(x, y), case
+        _assert_k1_close([x.cpu() for x in got], plain, 5e-5)
+        if case == "orb":
+            for x, y in zip(got, plain):
+                assert torch.equal(x.cpu(), y)
+
+
+def test_scratch_cache_keyed_by_width(monkeypatch):
+    """d = 128 and d = 256 calls of one shape get their own scratch buffers
+    and layouts; another width raises before any launch."""
+    calls, layouts = [], []
+
+    class Lib:
+        @staticmethod
+        def masked_nn_launch(*a):
+            calls.append(a)
+            return 0
+
+    def layout(n, m, d):
+        layouts.append(d)
+        return (2 * d * (n + m), {}, 1)
+
+    monkeypatch.setattr(tk1, "_lib", lambda: Lib)
+    monkeypatch.setattr(tk1, "_layout", layout)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 7, raising=False)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(tk1, "_scratch", {})
+    n, m = 300, 40
+
+    def args(d):
+        return (torch.zeros((n, d)), torch.zeros((m, d)), torch.ones(n, dtype=torch.bool),
+                torch.ones(m, dtype=torch.bool), torch.zeros((n, 2)), torch.zeros((m, 2)),
+                torch.ones(n), torch.zeros(n, dtype=torch.int32), torch.zeros(m, dtype=torch.int32))
+
+    s128 = tk1._launch(args(128), (-1.0, 1.0))[1]
+    s256 = tk1._launch(args(256), (-1.0, 1.0))[1]
+    assert s128 is not s256 and s256.numel() == 2 * 256 * (n + m) == 2 * s128.numel()
+    assert tk1._launch(args(256), (-1.0, 1.0))[1] is s256
+    assert set(tk1._scratch) == {(None, 7, n, m, 128), (None, 7, n, m, 256)}
+    assert [c[11] for c in calls] == [128, 256, 256]  # the width reaches the C call
+    with pytest.raises(ValueError, match="descriptor width 192"):
+        tk1._launch(args(192), (-1.0, 1.0))
+    assert len(calls) == 3

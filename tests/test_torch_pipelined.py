@@ -242,12 +242,13 @@ def test_wrapper_bookkeeping_from_two_threads(monkeypatch):
 
     def fake_launch(args, level_window, scratch=None):
         stream = threading.get_ident()  # each thread as if on its own stream
-        buf = tk1._scratch_buffer(torch.device("cpu"), stream, args[0].shape[0], 7)
+        buf = tk1._scratch_buffer(torch.device("cpu"), stream, args[0].shape[0], 7,
+                                  args[0].shape[1])
         seen.setdefault(stream, set()).add(buf.data_ptr())
         return (None, None, None), buf
 
     monkeypatch.setattr(tk1, "_launch", fake_launch)
-    monkeypatch.setattr(tk1, "_layout", lambda n, m: (64, {}, 1))
+    monkeypatch.setattr(tk1, "_layout", lambda n, m, d: (64, {}, 1))
     monkeypatch.setattr(tk1, "_scratch", {})
     monkeypatch.setattr(tk1.masked_nn, "launches", 0)
     monkeypatch.setattr(tk1.masked_nn, "by_site", {})

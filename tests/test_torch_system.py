@@ -308,11 +308,26 @@ def test_unported_construction_raises(case):
     cfg, kw, match = {
         # the reference's own use_orb System fails: 256-wide descriptors in
         # its 128-wide store (asdslam_tpu/mapping/map_store.py:76, 202)
-        "orb": (sync.replace(use_orb=True), {}, "128-wide store.*ROADMAP: ORB"),
+        "orb": (sync.replace(use_orb=True), {}, "map store is 128 wide.*ported as functions"),
         "mesh_global_ba": (sync.replace(n_devices=2), dict(do_loop_closing=True), "ROADMAP"),
     }[case]
     with pytest.raises(NotImplementedError, match=match):
         TSystem(cfg, device="cpu", **kw)
+
+
+def test_both_stores_reject_orb_width():
+    """Where the reference's use_orb System fails, and why the port's System
+    refuses cfg.use_orb: both packages' MapStore keep 128-wide descriptors,
+    so add_map_point of a 256-wide ORB descriptor raises in each, and a
+    128-wide one goes in."""
+    from asdslam_tpu.mapping.map_store import MapStore as JStore
+
+    for Store in (JStore, TStore):
+        store = Store(max_kfs=4, max_pts=8, n_feat=16)
+        assert store.mp_desc.shape[1] == 128
+        with pytest.raises(ValueError, match="could not broadcast"):
+            store.add_map_point(np.zeros(3), np.full(256, 1.0 / 16, np.float32), 0)
+        assert store.add_map_point(np.zeros(3), np.zeros(128, np.float32), 0) == 0
 
 
 @pytest.mark.parametrize("case", ["pipelined", "async", "defaults", "loop_closing",
