@@ -5,7 +5,9 @@ Plain tensor code is PyTorch; the one kernel the JAX package wrote by hand
 (``csrc/masked_nn.cu``, wrapped by ``ops/masked_nn.py``).  Module paths
 mirror ``asdslam_tpu`` so each function's reference is found by path.
 
-The entry point is ``asdslam_torch.system.System`` (synchronous mode so far).
+The entry point is ``asdslam_torch.system.System``, in the config's default
+mode (pipelined tracking, the asynchronous mapping worker) or the
+synchronous one.
 Entry points take a ``device`` argument that defaults to ``"cuda"``.
 """
 

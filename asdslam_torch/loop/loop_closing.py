@@ -25,8 +25,11 @@ keyframe id), so a CPU run and a CUDA run see the same draws; a test may
 replace the methods to replay the JAX streams.  The two projection searches
 (``_count_guided_matches``, ``_fuse_mps_into_kf``) go through
 ``match.search_projection``, so on a CUDA device through the masked-NN
-kernel.  ``cfg.n_devices > 1`` (the reference's mesh global BA) is not
-ported yet.
+kernel.  ``cfg.n_devices > 1`` routes the global BA through the
+point-major mesh solver (``parallel/dist.py``), as the reference does; the
+port's mesh puts its shards on the cards there are, sharing them where
+there are fewer cards than shards, so it never falls back to the one-device
+global BA (the reference does where it has fewer chips).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from asdslam_torch.geometry import se3
 from asdslam_torch.loop import vocab as vocab_mod
 from asdslam_torch.loop.keyframe_db import KeyFrameDatabase
 from asdslam_torch.ops import match
+from asdslam_torch.parallel import dist
 from asdslam_torch.mapping.map_store import (
     MapStore, _mat_to_quat_np_batch, _pose_np, _pose_np_batch)
 from asdslam_torch.utils.tracing import Tracer
@@ -65,10 +69,6 @@ class LoopCloser:
     def __init__(self, cfg: SlamConfig, K, store: MapStore,
                  vocabulary: Optional[vocab_mod.Vocabulary] = None,
                  vocab_min_kfs: int = 5, run_global_ba: bool = True, device="cuda"):
-        if cfg.n_devices > 1:
-            raise NotImplementedError(
-                "the multi-device global BA (cfg.n_devices > 1) is not ported yet "
-                "(ROADMAP: parallel/, Queue 1 item 19)")
         self.cfg = cfg
         self.device = torch.device(device)
         self.K = torch.as_tensor(K, dtype=torch.float32).to(self.device)
@@ -573,6 +573,15 @@ class LoopCloser:
         cam_idx = np.asarray(inv_order, np.int64)[cam_idx]
 
         P = len(mp_ids)
+        if cfg.n_devices > 1:
+            # the same assembled problem through the point-major mesh solver
+            with self.tracer.span("gba_mesh"):
+                poses_o, points_o = self._global_ba_mesh(
+                    poses, mp_ids, cam_idx, pt_idx, uv, inv_s2, valid, n_opt=K_kfs - 1)
+            for i, k in enumerate(order):
+                store.set_kf_pose(k, poses_o[i])
+            store.mp_pos[mp_ids] = points_o
+            return
         obs = ba.Obs(cam_idx=self._dev(cam_idx), pt_idx=self._dev(pt_idx),
                      uv=self._dev(uv), inv_sigma2=self._dev(inv_s2),
                      valid=self._dev(valid))
@@ -590,3 +599,23 @@ class LoopCloser:
         for i, k in enumerate(order):
             store.set_kf_pose(k, poses_o[i])
         store.mp_pos[mp_ids] = points_o
+
+    def _global_ba_mesh(self, poses, mp_ids, cam_idx, pt_idx, uv, inv_s2, valid,
+                        n_opt: int):
+        """Loop-closure GBA over a mesh of ``cfg.n_devices`` shards on this
+        closer's device type: the point-major layout and its gather tables
+        once, then ``loop_gba_iters`` damped Gauss-Newton steps of the
+        distributed Schur solver, on the calling thread's current stream.
+        The step runs in float64, so the result does not depend on the mesh
+        size (``parallel/dist.py``)."""
+        cfg = self.cfg
+        mesh = dist.make_mesh(cfg.n_devices, device=self.device)
+        (points_pm, cam_o, pt_o, uv_o, s2_o, va_o, Pn_pad) = dist.layout_point_major(
+            self.store.mp_pos[mp_ids], cam_idx, pt_idx, uv, inv_s2, valid, mesh.size)
+        obs_pm = dist.shard_observations(mesh, cam_o, pt_o, uv_o, s2_o, va_o, Pn_pad, n_opt)
+        points_d = dist.shard_to_mesh(mesh, points_pm, "data")
+        poses_d = self._dev(np.asarray(poses, np.float32))
+        step = dist.make_pm_step(mesh, n_opt, lam=1e-3)
+        for _ in range(cfg.loop_gba_iters):
+            poses_d, points_d = step(poses_d, points_d, obs_pm, self.K)
+        return poses_d.cpu().numpy(), mesh.gather(points_d).cpu().numpy()[:len(mp_ids)]

@@ -21,9 +21,11 @@ undistorts keypoints at extraction.  A map is saved and loaded as a binary
     loc = System(cfg, asdnet_params=..., localization_mode=True)
     loc.load_map("run.map")        # then track_monocular as above
 
-What is not ported yet raises ``NotImplementedError`` by its ROADMAP name:
-the ORB descriptor and the multi-device global BA at construction, the
-debug image when called.
+``cfg.n_devices > 1`` runs the loop closer's global BA over a mesh of that
+many shards (``parallel/dist.py``).  The debug image raises
+``NotImplementedError`` by its ROADMAP name when called, and ``cfg.use_orb``
+is refused at construction for the reference's own reason
+(``ORB_REFUSAL``).
 """
 
 from __future__ import annotations

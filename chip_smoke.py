@@ -125,7 +125,30 @@ Phases, each of which raises on failure (exit code != 0):
    d. the native library: its build log, phase 8a's 30 PNGs decoded by it
       bit for bit as by the numpy decoder, the prefetching loader over them
       in order, phase 5's map written by it byte for byte as by the struct
-      writer and read back, and phase 8a having decoded through it.
+      writer and read back, and phase 8a having decoded through it;
+11. the multi-device path (asdslam_torch/parallel/), every shard on the one
+   card (the mesh places shards round-robin on the cards there are):
+   a. the point-major BA step on tests/multihost_child.py's problem (numpy,
+      seed 42) over 1, 2, 4 and 8 shards against each other and against the
+      port's CPU result, three steps on 8 shards (the error below 0.05 of
+      its start, the fixed camera unmoved), the reduced elements equal at 64
+      and 1024 points and within the camera-block bound, two runs bitwise;
+   b. phase 6's loop-closed map (KITTI shape) through LoopCloser._global_ba
+      at n_devices 2 and 8 (routed through _global_ba_mesh), against each
+      other, finite and moved; the mean reprojection error before and after
+      and each call's time beside the one-device global_bundle_adjust;
+   c. 4 sequences (the corridor's frames scaled by 1 - 0.05 b) over 4 shards
+      at the KITTI shape, 4 chained frames from phase 3's hand-built state
+      through multi_seq.make_dp_track_step: 48 masked_nn launches, nothing
+      reduced, each sequence bit for bit its single step; sequence-frames/s
+      on 1 and 4 shards;
+   d. the trained ASDNet on one frame's 2000 patches over 4 shards against
+      the whole batch;
+   e. processes (this script run as ``--multihost-child``, started at the
+      phase's start): two ranks on the card over gloo (init_multihost's
+      rule) agreeing with each other and with the in-process 2-shard mesh,
+      and one NCCL rank at world size 1 bitwise the in-process 1-shard mesh;
+   and prints a `multi_device` JSON line.
 
 Prints a `kernels` JSON line before the last line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -639,12 +662,14 @@ def layer_times(cfg, K, extract, frames_u8, state, cand, device):
 
 def device_busy(step, frames_u8, state, cand):
     """(device kernel time, wall time) in ms over 3 chained frames, from
-    torch.profiler: the sum of device self time over all events."""
+    torch.profiler with CUDA activity only (tracing the host's calls too
+    slows the traced frames and takes a minute to summarise): the sum of
+    device self time over all events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run_chain(step, frames_u8, state, cand, 1, 3)
         torch.cuda.synchronize()
@@ -940,7 +965,8 @@ def phase6(cfg, weights, device, card, errs, k1_cases):
     """The default configuration over the loop sequence: two runs and, timed
     between them in the same process, the synchronous mode; the checks; the
     dispatch check; K1 at the loop closer's call sites.  Adds those calls to
-    ``k1_cases`` / ``errs`` and returns the numbers for the JSON line."""
+    ``k1_cases`` / ``errs`` and returns the numbers for the JSON line and the
+    first run's System (phase 11 reads its map)."""
     frames_u8, poses_gt = render_loop(cfg, device)
     sync_cfg = cfg.replace(pipelined_tracking=False, async_mapping=False)
     first = run_default(cfg, frames_u8, weights, device, record=True)
@@ -1003,7 +1029,7 @@ def phase6(cfg, weights, device, card, errs, k1_cases):
         err, pairs_in, share = check_k1(case, args)
         errs.append(err)
         k1_cases[case] = (args, pairs_in, share)
-    return out
+    return out, first["system"]
 
 
 # --------------------------------------------------------------------------- #
@@ -1937,6 +1963,408 @@ def phase10(cfg, device, card, errs, k1_cases, asd_extract_ms, mapped, native_de
     return out
 
 
+# --------------------------------------------------------------------------- #
+# Phase 11: the multi-device path
+# --------------------------------------------------------------------------- #
+MD_SHARDS = (1, 2, 4, 8)
+# tests/test_parallel.py's bars across shard counts and process topologies
+MD_POSE_BAR, MD_POINT_BAR = 5e-3, 2e-2
+# tests/test_parallel.py::TestSystemMeshGBA's bars across mesh sizes
+GBA_POSE_BAR, GBA_POINT_BAR = 2e-4, 2e-3
+GBA_MESHES = (2, 8)
+N_SEQ, N_SEQ_FRAMES, SEQ_SHARDS = 4, 4, 4
+DP_PATCH_SHARDS = 4
+CHILD_TIMEOUT = 300
+MD_K = np.array([[500.0, 0.0, 320.0], [0.0, 500.0, 240.0], [0.0, 0.0, 1.0]], np.float32)
+
+
+def make_problem_np(n_cams=4, n_pts=64, n_dev=8):
+    """tests/multihost_child.py::make_problem_np: a BA problem from numpy's
+    generator of seed 42 (poses0, pts0, cam_idx, pt_idx, uv, inv_s2,
+    valid); the last camera is the fixed one."""
+    rng = np.random.default_rng(42)
+    pts_gt = rng.uniform(-2.0, 2.0, (n_pts, 3)) + np.array([0.0, 0.0, 6.0])
+    poses_gt = np.asarray([[1.0, 0.0, 0.0, 0.0, 0.3 * c, 0.0, 0.0] for c in range(n_cams)],
+                          np.float32)
+    O = 16 * n_dev * ((n_cams * n_pts) // (16 * n_dev))
+    cam_idx = (np.arange(O) % n_cams).astype(np.int32)
+    pt_idx = (np.arange(O) % n_pts).astype(np.int32)
+    xc = pts_gt[pt_idx] + poses_gt[cam_idx, 4:7]  # identity rotations
+    uv = np.stack([500.0 * xc[:, 0] / xc[:, 2] + 320.0,
+                   500.0 * xc[:, 1] / xc[:, 2] + 240.0], axis=1).astype(np.float32)
+    poses0 = poses_gt.copy()
+    poses0[:n_cams - 1, 4:] += 0.05 * rng.standard_normal((n_cams - 1, 3))
+    pts0 = (pts_gt + 0.05 * rng.standard_normal(pts_gt.shape)).astype(np.float32)
+    return (poses0.astype(np.float32), pts0, cam_idx, pt_idx, uv,
+            np.ones(O, np.float32), np.ones(O, bool))
+
+
+def md_steps(mesh, problem, steps=1):
+    """``steps`` point-major BA steps of ``problem`` over ``mesh``, as one
+    process of it: the layout and its tables on the host, this process's
+    shards, the steps, one gather of the points.  Returns host arrays."""
+    import torch
+    from asdslam_torch.parallel import dist
+
+    poses0, pts0, cam_idx, pt_idx, uv, inv_s2, valid = problem
+    (pts_pm, cam_o, pt_o, uv_o, s2_o, va_o, Pn_pad) = dist.layout_point_major(
+        pts0, cam_idx, pt_idx, uv, inv_s2, valid, mesh.size)
+    obs = dist.shard_observations(mesh, cam_o, pt_o, uv_o, s2_o, va_o, Pn_pad, 3)
+    poses, pts = torch.tensor(poses0), dist.shard_to_mesh(mesh, pts_pm, "data")
+    step = dist.make_pm_step(mesh, 3)
+    for _ in range(steps):
+        poses, pts = step(poses, pts, obs, torch.tensor(MD_K))
+    return poses.cpu().numpy(), mesh.gather(pts)[:len(pts0)].cpu().numpy()
+
+
+def md_rmse(problem, poses, pts):
+    import torch
+    from asdslam_torch.backend import ba
+
+    obs = ba.Obs(*(torch.tensor(x) for x in problem[2:]))
+    r, _, _, _ = ba._project_residuals(torch.tensor(poses), torch.tensor(pts), obs,
+                                       torch.tensor(MD_K))
+    return float(torch.sqrt(torch.mean(torch.sum(r * r, dim=1))))
+
+
+def md_close(what, a, b, bar_poses, bar_points):
+    """Max |a - b| over poses and points, raising past the bars."""
+    dp, dx = (float(np.abs(x - y).max()) for x, y in zip(a, b))
+    if not (dp <= bar_poses and dx <= bar_points):
+        raise AssertionError(f"{what}: poses {dp:.3g} (bar {bar_poses}), points {dx:.3g} "
+                             f"(bar {bar_points})")
+    return dp, dx
+
+
+def multihost_child(argv):
+    """One process of 11e: ``--multihost-child RANK WORLD PORT BACKEND DEVICE
+    OUT`` (BACKEND "auto" takes init_multihost's rule; DEVICE "cuda").  One
+    shard on this process's card, one step of make_problem_np's problem,
+    the result in OUT/rank{RANK}.npz."""
+    rank, world, port, backend, device, out = (int(argv[0]), int(argv[1]), argv[2], argv[3],
+                                               argv[4], argv[5])
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+    import torch.distributed
+    from asdslam_torch.parallel import dist
+
+    dist.init_multihost(f"localhost:{port}", world, rank,
+                        backend=None if backend == "auto" else backend)
+    try:
+        mesh = dist.global_mesh(1, device=device)
+        poses, pts = md_steps(mesh, make_problem_np())
+        np.savez(os.path.join(out, f"rank{rank}.npz"), poses=poses, pts=pts,
+                 backend=torch.distributed.get_backend(), device=str(mesh.devices[0]),
+                 reduced=mesh.reduced_elems)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def start_children(tmp, device):
+    """11e's processes, started together: two ranks over the default rule
+    (gloo: they share the card) and one rank alone (NCCL).  Returns
+    [(name, out_dir, world, [Popen])]."""
+    import socket
+
+    groups = []
+    for name, world in (("gloo_pair", 2), ("nccl_alone", 1)):
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = str(s.getsockname()[1])
+        out = os.path.join(tmp, name)
+        os.makedirs(out)
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--multihost-child", str(r), str(world),
+             port, "auto", device, out], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for r in range(world)]
+        groups.append((name, out, world, procs))
+    return groups
+
+
+def finish_children(groups):
+    """Wait for 11e's processes (each under CHILD_TIMEOUT); a failed or
+    hung one fails the phase.  Returns {name: [rank results]}."""
+    results = {}
+    try:
+        for name, out, world, procs in groups:
+            for r, p in enumerate(procs):
+                try:
+                    text = p.communicate(timeout=CHILD_TIMEOUT)[0].decode(errors="replace")
+                except subprocess.TimeoutExpired:
+                    raise AssertionError(f"11e {name} rank {r} hung past {CHILD_TIMEOUT} s")
+                if p.returncode != 0:
+                    raise AssertionError(f"11e {name} rank {r} exited {p.returncode}:\n"
+                                         f"{text[-3000:]}")
+            results[name] = [dict(np.load(os.path.join(out, f"rank{r}.npz")))
+                             for r in range(world)]
+    finally:
+        for _, _, _, procs in groups:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    return results
+
+
+def map_reproj_px(store, cfg):
+    """Mean reprojection error (px) of every valid map point's
+    observations in the store's keyframes."""
+    from asdslam_torch.mapping.map_store import _pose_np_batch
+
+    mp_ids = np.nonzero(store.mp_valid[:store.n_mp])[0]
+    pt_row, kfs, feats = store.observation_rows(mp_ids)
+    R, t = _pose_np_batch(store.kf_pose[kfs])
+    xc = np.einsum("oij,oj->oi", R, store.mp_pos[mp_ids][pt_row]) + t
+    uv = np.stack([cfg.fx * xc[:, 0] / xc[:, 2] + cfg.cx,
+                   cfg.fy * xc[:, 1] / xc[:, 2] + cfg.cy], axis=1)
+    return float(np.linalg.norm(uv - store.kf_uv_t[kfs, feats], axis=1).mean())
+
+
+def phase11(cfg, device, card, loop_system):
+    """11a-11e (module docstring).  ``loop_system`` is phase 6's first
+    default-configuration System, after its loop.  Returns (the numbers
+    for the multi_device line, 11c's masked_nn launches)."""
+    import copy
+    import tempfile
+    import torch
+    from asdslam_torch.frontend import track_step as ts
+    from asdslam_torch.loop.loop_closing import LoopCloser
+    from asdslam_torch.ops import masked_nn as k1
+    from asdslam_torch.parallel import dist, multi_seq
+    from asdslam_torch.utils.tracing import Tracer
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        groups = start_children(tmp, device)  # they start up while 11a-11d run
+        try:
+            # ---- 11a: the distributed BA step ----------------------------- #
+            t0 = time.perf_counter()
+            problem = make_problem_np()
+            ba_res, step_ms, meshes = {}, {}, {}
+            for n in MD_SHARDS:
+                meshes[n] = dist.make_mesh(n, device)
+                md_steps(dist.make_mesh(n, device), problem)  # warm
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                ba_res[n] = md_steps(meshes[n], problem)
+                step_ms[n] = (time.perf_counter() - t1) * 1e3
+            on = {str(d) for m in meshes.values() for d in m.devices}
+            if len(on) != 1:
+                raise AssertionError(f"11a: the shards are on {on}, not on one card")
+            cpu = md_steps(dist.make_mesh(8, "cpu"), problem)
+            spread = {n: md_close(f"11a {n} shards against 1", ba_res[n], ba_res[1], MD_POSE_BAR,
+                                  MD_POINT_BAR) for n in MD_SHARDS[1:]}
+            vs_cpu = {n: md_close(f"11a {n} shards against the CPU's 8", ba_res[n], cpu,
+                                  MD_POSE_BAR, MD_POINT_BAR) for n in MD_SHARDS}
+            again = md_steps(dist.make_mesh(8, device), problem)
+            if not all(np.array_equal(a, b) for a, b in zip(again, ba_res[8])):
+                raise AssertionError("11a: two runs of the 8-shard step differ")
+            e0 = md_rmse(problem, problem[0], problem[1])
+            p3, x3 = md_steps(dist.make_mesh(8, device), problem, steps=3)
+            e3 = md_rmse(problem, p3, x3)
+            if not (np.isfinite(p3).all() and np.isfinite(x3).all() and e3 < 0.05 * e0):
+                raise AssertionError(f"11a: three steps took the error from {e0} to {e3}")
+            if not np.array_equal(p3[3], problem[0][3]):
+                raise AssertionError("11a: the fixed camera moved")
+            reduced = {}
+            for n_pts in (64, 1024):
+                mesh = dist.make_mesh(8, device)
+                md_steps(mesh, make_problem_np(n_pts=n_pts))
+                reduced[n_pts] = mesh.reduced_elems
+            bound = 4 * (3 * 3 * 36 + 3 * 36 + 2 * 3 * 6)
+            if reduced[64] != reduced[1024] or not 0 < reduced[64] <= bound:
+                raise AssertionError(f"11a: reduced elements {reduced} (bound {bound})")
+            out["11a"] = dict(step_ms=step_ms, spread_vs_1=spread, vs_cpu=vs_cpu,
+                              rmse_px=[e0, e3], reduced_elems=reduced, reduced_bound=bound,
+                              seconds=time.perf_counter() - t0)
+            log(f"11a the point-major BA step on {MD_SHARDS} shards of {on.pop()}: against 1 shard "
+                f"(poses, points) {spread}, against the CPU's 8 shards {vs_cpu} (bars "
+                f"{MD_POSE_BAR} / {MD_POINT_BAR}); two runs bitwise equal; three steps on 8 "
+                f"shards {e0:.4f} -> {e3:.3g} px rms, the fixed camera unmoved; reduced "
+                f"elements a step {reduced} (bound {bound}); layout + step + gather "
+                + ", ".join(f"{n} shards {v:.1f} ms" for n, v in step_ms.items())
+                + f" [{card}]")
+
+            # ---- 11b: the System's mesh global BA at full width ----------- #
+            t0 = time.perf_counter()
+            lc0 = loop_system.loop_closer
+            before = loop_system.store
+            n_kf = before.n_kf
+            gba = {}
+            for k in (1,) + GBA_MESHES:
+                lc = LoopCloser(lc0.cfg.replace(n_devices=k), lc0.K, copy.deepcopy(before),
+                                device=device)
+                lc.tracer = Tracer()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                lc._global_ba()
+                torch.cuda.synchronize()
+                gba[k] = dict(ms=(time.perf_counter() - t1) * 1e3, store=lc.store,
+                              spans=sorted(lc.tracer.spans))
+                if (k > 1) != (gba[k]["spans"] == ["gba_mesh"]):
+                    raise AssertionError(f"11b n_devices {k}: spans {gba[k]['spans']}")
+            a, b = gba[GBA_MESHES[0]]["store"], gba[GBA_MESHES[1]]["store"]
+            live = a.mp_valid[:a.n_mp]
+            dpose = float(np.abs(a.kf_pose[:n_kf] - b.kf_pose[:n_kf]).max())
+            dpts = float(np.abs(a.mp_pos[:a.n_mp][live] - b.mp_pos[:b.n_mp][live]).max())
+            moved = float(np.abs(a.kf_pose[:n_kf] - before.kf_pose[:n_kf]).max())
+            if not (np.isfinite(a.kf_pose[:n_kf]).all() and np.isfinite(a.mp_pos[:a.n_mp][live]).all()
+                    and moved > 0):
+                raise AssertionError(f"11b: the mesh GBA left a non-finite or unmoved map "
+                                     f"(moved {moved})")
+            if not (dpose <= GBA_POSE_BAR and dpts <= GBA_POINT_BAR):
+                raise AssertionError(f"11b: {GBA_MESHES} shards differ by poses {dpose:.3g}, "
+                                     f"points {dpts:.3g} (bars {GBA_POSE_BAR} / {GBA_POINT_BAR})")
+            err = {"before": map_reproj_px(before, cfg),
+                   **{k: map_reproj_px(v["store"], cfg) for k, v in gba.items()}}
+            out["11b"] = dict(keyframes=n_kf, map_points=int(live.sum()),
+                              ms={k: v["ms"] for k, v in gba.items()}, mesh_pose_diff=dpose,
+                              mesh_point_diff=dpts, moved=moved, reproj_px=err,
+                              seconds=time.perf_counter() - t0)
+            log(f"11b phase 6's map ({n_kf} keyframes, {int(live.sum())} points): _global_ba "
+                f"through _global_ba_mesh at n_devices {GBA_MESHES}: poses {dpose:.3g}, points "
+                f"{dpts:.3g} apart (bars {GBA_POSE_BAR} / {GBA_POINT_BAR}), poses moved up to "
+                f"{moved:.3g}; mean reprojection error before {err['before']:.4f} px, after "
+                + ", ".join(f"n_devices {k} {err[k]:.4f}" for k in gba)
+                + "; host ms a call (the one-device global_bundle_adjust at n_devices 1) "
+                + ", ".join(f"{k}: {v['ms']:.1f}" for k, v in gba.items()) + f" [{card}]")
+
+            # ---- 11c: multi-sequence tracking at full width ---------------- #
+            t0 = time.perf_counter()
+            K, extract, frames_u8, poses, cand, state = build_tracking(cfg, device)
+            seq_frames = [[(frames_u8[i].to(torch.float32) * (1 - 0.05 * b)).clamp(0, 255)
+                           .to(torch.uint8) for i in range(N_SEQ_FRAMES + 1)]
+                          for b in range(N_SEQ)]
+
+            def tile(x):
+                if isinstance(x, tuple):
+                    return type(x)(*(tile(f) for f in x))
+                return torch.stack([x] * N_SEQ)
+
+            bstate0 = [tile(state[k]) for k in ("pose", "vel", "feat", "geom")]
+            bcand, bcrow0 = tile(cand), tile(state["crow"])
+
+            def run_batched(step):
+                pose, vel, feat, geom = bstate0
+                crow, results = bcrow0, []
+                for i in range(1, N_SEQ_FRAMES + 1):
+                    imgs = torch.stack([seq_frames[b][i] for b in range(N_SEQ)])
+                    feat, res = step(imgs, pose, vel, feat, geom, bcand, crow)
+                    pose, vel, geom, crow = res.pose, res.velocity, res.next_geom, res.crow
+                    results.append((feat, res))
+                return results
+
+            fps = {}
+            for n in (1, SEQ_SHARDS):
+                mesh = dist.make_mesh(n, device)
+                step = multi_seq.make_dp_track_step(cfg, K, extract, mesh)
+                torch.cuda.synchronize()  # phase 3 warmed the step at these shapes
+                if n == SEQ_SHARDS:
+                    k1.masked_nn.launches = 0
+                t1 = time.perf_counter()
+                batched = run_batched(step)
+                torch.cuda.synchronize()
+                fps[n] = N_SEQ * N_SEQ_FRAMES / (time.perf_counter() - t1)
+                if n == SEQ_SHARDS:
+                    launches = k1.masked_nn.launches
+                    if launches != 3 * N_SEQ * N_SEQ_FRAMES:
+                        raise AssertionError(f"11c: masked_nn launched {launches} times, not "
+                                             f"{3 * N_SEQ * N_SEQ_FRAMES}")
+                    if mesh.reduced_elems != 0:
+                        raise AssertionError(f"11c: the batched step reduced {mesh.reduced_elems}")
+            single = ts.make_track_step(cfg, K, extract, device=device)
+            n_in = []
+            for b in range(N_SEQ):
+                feat, geom, pose, vel, crow = (state[k] for k in ("feat", "geom", "pose", "vel",
+                                                                  "crow"))
+                for i in range(1, N_SEQ_FRAMES + 1):
+                    feat, res = single(seq_frames[b][i], pose, vel, feat, geom, cand, crow)
+                    geom, pose, vel, crow = res.next_geom, res.pose, res.velocity, res.crow
+                    bf, br = batched[i - 1]
+                    pairs = (("feat", feat, multi_seq._take(bf, b, device)),
+                             ("result", res, multi_seq._take(br, b, device)))
+                    for name, x, y in pairs:
+                        if not all(torch.equal(u, v)
+                                   for u, v in zip(tree_leaves(x), tree_leaves(y))):
+                            raise AssertionError(f"11c sequence {b} frame {i}: {name} "
+                                                 f"differs from the single step")
+                    if not torch.isfinite(res.pose).all():
+                        raise AssertionError(f"11c sequence {b} frame {i}: non-finite pose")
+                n_in.append(int(res.n_inliers))
+            if min(n_in) < cfg.min_localmap_matches:
+                raise AssertionError(f"11c: tracking lost, last n_inliers {n_in}")
+            out["11c"] = dict(sequences=N_SEQ, frames=N_SEQ_FRAMES, shards=SEQ_SHARDS,
+                              launches=launches, seq_frames_per_s=fps, last_n_inliers=n_in,
+                              seconds=time.perf_counter() - t0)
+            log(f"11c {N_SEQ} sequences x {N_SEQ_FRAMES} chained frames at {cfg.image_width}x"
+                f"{cfg.image_height} over {SEQ_SHARDS} shards: masked_nn launches {launches}, "
+                f"nothing reduced, every sequence bit for bit its single step, last n_inliers "
+                f"{n_in}; sequence-frames/s " + ", ".join(f"{n} shard(s) {v:.3f}"
+                                                         for n, v in fps.items()) + f" [{card}]")
+
+            # ---- 11d: the data-parallel descriptor ------------------------- #
+            from asdslam_torch.frontend.extractor import make_extractor
+            from asdslam_torch.models.asdnet import ASDNet, load_weights
+            weights = load_weights(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                "asdnet_weights.pkl"))
+            net = ASDNet().to(device)
+            net.load_state_dict(weights)
+            seen = []
+            make_extractor(cfg, lambda p: seen.append(p) or net(p))(
+                frames_u8[1].to(device).to(torch.float32) / 255.0)
+            patches = seen[0]
+            dp = dist.dp_descriptor_fn(weights, dist.make_mesh(DP_PATCH_SHARDS, device))
+            with torch.no_grad():
+                d_dp, d_whole = dp(patches), net(patches)
+            d_err = float((d_dp - d_whole).abs().max())
+            if d_dp.shape != d_whole.shape or not d_err <= 2e-2:
+                raise AssertionError(f"11d: {tuple(d_dp.shape)} descriptors {d_err:.3g} from "
+                                     "the whole batch's (bar 2e-2)")
+            out["11d"] = dict(patches=int(patches.shape[0]), shards=DP_PATCH_SHARDS,
+                              max_abs_err=d_err)
+            log(f"11d ASDNet (trained) on {patches.shape[0]} patches over {DP_PATCH_SHARDS} "
+                f"shards: max |d| {d_err:.3g} from the whole batch (bar 2e-2)")
+        except BaseException:
+            for _, _, _, procs in groups:
+                for p in procs:
+                    p.kill()
+            raise
+
+        # ---- 11e: processes ----------------------------------------------- #
+        t0 = time.perf_counter()
+        kids = finish_children(groups)
+        pair, alone = kids["gloo_pair"], kids["nccl_alone"]
+        if [str(r["backend"]) for r in pair] != ["gloo", "gloo"] or \
+                str(alone[0]["backend"]) != "nccl":
+            raise AssertionError(f"11e: backends {[str(r['backend']) for r in pair]} / "
+                                 f"{alone[0]['backend']}")
+        on = {str(r["device"]) for r in pair + alone}
+        if len(on) != 1:
+            raise AssertionError(f"11e: the ranks are on {on}, not on one card")
+        ranks = md_close("11e the two gloo ranks", (pair[0]["poses"], pair[0]["pts"]),
+                         (pair[1]["poses"], pair[1]["pts"]), 1e-6, 1e-6)
+        vs_mesh = md_close("11e the gloo ranks against the in-process 2-shard mesh",
+                           (pair[0]["poses"], pair[0]["pts"]), ba_res[2], MD_POSE_BAR,
+                           MD_POINT_BAR)
+        if not (np.array_equal(alone[0]["poses"], ba_res[1][0])
+                and np.array_equal(alone[0]["pts"], ba_res[1][1])):
+            raise AssertionError("11e: the NCCL rank differs from the in-process 1-shard mesh")
+        out["11e"] = dict(gloo_ranks_diff=ranks, gloo_vs_mesh2=vs_mesh,
+                          nccl_vs_mesh1="bitwise", wait_s=time.perf_counter() - t0)
+        log(f"11e two processes on {on.pop()} over gloo (init_multihost's rule), one shard each: "
+            f"ranks {ranks} apart (bar 1e-6), {vs_mesh} from the in-process 2-shard mesh "
+            f"(bars {MD_POSE_BAR} / {MD_POINT_BAR}); one NCCL rank at world size 1 bitwise the "
+            f"in-process 1-shard mesh; waited {time.perf_counter() - t0:.1f} s for them")
+    return out, launches
+
+
+def tree_leaves(x):
+    if isinstance(x, tuple):
+        return [leaf for f in x for leaf in tree_leaves(f)]
+    return [x]
+
+
 def main():
     import torch
 
@@ -2091,7 +2519,7 @@ def main():
 
     stamp("phase 5")
     # ---- 6. the default configuration -------------------------------------- #
-    default = phase6(cfg, weights, device, card, errs, k1_cases)
+    default, loop_system = phase6(cfg, weights, device, card, errs, k1_cases)
     stamp("phase 6")
     # ---- 7. localization mode, persistence, EuRoC's lens ------------------- #
     localization = phase7(cfg, second["system"], frames_u8, weights, device, card, errs,
@@ -2115,6 +2543,12 @@ def main():
     orb_path["seconds"] = time.perf_counter() - t0
     launches_orb = orb_path["10b"]["launches"]
     stamp("phase 10")
+    # ---- 11. the multi-device path ----------------------------------------- #
+    t0 = time.perf_counter()
+    multi_device, launches_multi = phase11(cfg, device, card, loop_system)
+    multi_device["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"multi_device": multi_device, "card": card}))
+    stamp("phase 11")
 
     # K1 by shape.  Everything that reads a clock comes before the first use
     # of torch.profiler: once it has traced, later launches of the process
@@ -2158,7 +2592,7 @@ def main():
         "source": "asdslam_torch/csrc/masked_nn.cu",
         "replaces": "asdslam_tpu/ops/pallas_match.py:42",
         "launches": (launches + launches_system + default["launches"] + launches_loc
-                     + launches_entry + launches_train + launches_orb),
+                     + launches_entry + launches_train + launches_orb + launches_multi),
         "max_abs_err": max(errs),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
@@ -2184,7 +2618,8 @@ def main():
                                 for k in ("8a", "8c", "8e")},
                              "trained_weights": launches_train,
                              "trained_weights_by_site": training["9c"]["by_site"],
-                             "orb_chained_step": launches_orb},
+                             "orb_chained_step": launches_orb,
+                             "multi_sequence": launches_multi},
         "default_config": default, "localization": localization, "entry_points": entry,
         "training": training, "orb_path": orb_path,
         "system": {"frames": N_SYSTEM, "fps": system_fps,
@@ -2199,4 +2634,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-child"]:
+        sys.exit(multihost_child(sys.argv[2:]))
     sys.exit(main())

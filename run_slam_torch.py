@@ -57,7 +57,9 @@ def parse_args(argv):
                    help="dump track/desc/kps/posi/traj.txt (saveResult parity)")
     p.add_argument("--n_frames", type=int, default=150, help="synthetic only")
     p.add_argument("--n_devices", type=int, default=1,
-                   help="device-mesh size: >1 is the multi-device global BA, not ported yet")
+                   help="device-mesh size: >1 routes loop-closure global BA "
+                        "through the point-major distributed solver "
+                        "(parallel/dist.py)")
     p.add_argument("--profile", action="store_true",
                    help="print per-stage wall-time spans at the end")
     p.add_argument("--viz_dir", default="",

@@ -169,6 +169,23 @@ def test_same_map_same_files_as_reference(port_run, tmp_path, monkeypatch):
         assert tres[name] == jres[name], name
 
 
+def test_mesh_global_ba_command(tmp_path):
+    """run_slam_torch.py --n_devices 2 --device cpu runs, and the global BA
+    of its System's loop closer goes over a mesh of two shards."""
+    system, text = in_process(run_slam_torch.main, [
+        "--dataset", "synthetic", "--device", "cpu", "--n_frames", "12", "--n_devices", "2",
+        "--output_addr", str(tmp_path / "traj.txt")])
+    line = last_json(text)
+    assert line["frames"] == 12 and line["tracked"] >= 6 and line["keyframes"] >= 3, line
+    assert system.cfg.n_devices == 2 and system.loop_closer.cfg.n_devices == 2
+    n = system.store.n_kf
+    pre = system.store.kf_pose[:n].copy()
+    system.loop_closer._global_ba()
+    assert system.tracer.spans["gba_mesh"].count == 1
+    assert np.isfinite(system.store.kf_pose[:n]).all()
+    assert not np.array_equal(pre, system.store.kf_pose[:n])
+
+
 def test_kitti_layout_directory(tmp_path):
     """--dataset kitti over PNGs and a camera file the test writes."""
     from asdslam_torch.config import SlamConfig

@@ -40,6 +40,8 @@ MODULES = (
     "models/train.py", "models/proxy_pairs.py",
     # ORB, the assignment engines and the native host library
     "ops/orb.py", "ops/patches.py", "ops/assignment.py", "native/build.py", "native/loader.py",
+    # multi-device: the mesh, the distributed BA, the batched tracking step
+    "parallel/dist.py", "parallel/multi_seq.py",
 )
 
 

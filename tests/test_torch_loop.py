@@ -564,11 +564,33 @@ def test_loop_closer_process_from_shared_state(jax_loop_run):
         tuple(after["accepted_log"][-1][:2])]
 
 
-def test_loop_closer_refuses_mesh_global_ba():
-    """cfg.n_devices > 1 (the mesh global BA) waits for ROADMAP item 13."""
-    from asdslam_torch.mapping.map_store import MapStore as TStore
-    with pytest.raises(NotImplementedError, match="parallel"):
-        TLoopCloser(TConfig(n_devices=2), T(KM), TStore(4, 16, 8), device="cpu")
+def test_loop_closer_refuses_mesh_global_ba(jax_loop_run):
+    """cfg.n_devices > 1 (the mesh global BA, ROADMAP item 19) no longer
+    refuses: the closer builds, and _global_ba on the JAX run's map after
+    its loop correction routes through _global_ba_mesh under its span,
+    moves every keyframe but the gauge and keeps the map finite."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_mapping import torch_store
+    from asdslam_torch.utils.tracing import Tracer
+
+    rec = jax_loop_run
+    store = torch_store(rec["after"])
+    cfg = TConfig(**{f: getattr(rec["cfg"], f) for f in TConfig.__dataclass_fields__})
+    lc = TLoopCloser(cfg.replace(n_devices=2), T(np.array(
+        [[cfg.fx, 0, cfg.cx], [0, cfg.fy, cfg.cy], [0, 0, 1.0]], np.float32)), store,
+        device="cpu")
+    lc.tracer = Tracer()
+    calls = []
+    real = lc._global_ba_mesh
+    lc._global_ba_mesh = lambda *a, **kw: calls.append(kw["n_opt"]) or real(*a, **kw)
+    n = store.n_kf
+    pre = store.kf_pose[:n].copy()
+    lc._global_ba()
+    assert calls == [n - 1] and list(lc.tracer.spans) == ["gba_mesh"]
+    moved = np.abs(store.kf_pose[:n] - pre).max(axis=1)
+    assert moved[0] == 0.0 and (moved[1:] > 0).all()
+    assert np.isfinite(store.kf_pose[:n]).all()
+    assert np.isfinite(store.mp_pos[:store.n_mp][store.mp_valid[:store.n_mp]]).all()
 
 
 # --------------------------------------------------------------------------- #

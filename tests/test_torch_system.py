@@ -302,14 +302,13 @@ def test_staged_tracking_and_relocalization(sequence, jax_run, port_replay_run):
 # --------------------------------------------------------------------------- #
 # (d) the paths that wait
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("case", ["orb", "mesh_global_ba"])
+@pytest.mark.parametrize("case", ["orb"])
 def test_unported_construction_raises(case):
     sync = TConfig(**SMALL)
     cfg, kw, match = {
         # the reference's own use_orb System fails: 256-wide descriptors in
         # its 128-wide store (asdslam_tpu/mapping/map_store.py:76, 202)
         "orb": (sync.replace(use_orb=True), {}, "map store is 128 wide.*ported as functions"),
-        "mesh_global_ba": (sync.replace(n_devices=2), dict(do_loop_closing=True), "ROADMAP"),
     }[case]
     with pytest.raises(NotImplementedError, match=match):
         TSystem(cfg, device="cpu", **kw)
@@ -331,13 +330,14 @@ def test_both_stores_reject_orb_width():
 
 
 @pytest.mark.parametrize("case", ["pipelined", "async", "defaults", "loop_closing",
-                                  "localization", "distortion"])
+                                  "localization", "distortion", "mesh_global_ba"])
 def test_ported_modes_construct(case):
     """The modes that are ported build: the config's defaults (pipelined
     tracking, asynchronous mapping), loop closing, whose closer the mapper
     runs and the tracker's relocalization reads, localization mode, which
-    builds a closer restricted to the prior map, and a lens with distortion,
-    whose extractor undistorts."""
+    builds a closer restricted to the prior map, a lens with distortion,
+    whose extractor undistorts, and loop closing whose global BA runs over a
+    mesh of two shards."""
     sync = TConfig(**SMALL)
     cfg, kw = {
         "pipelined": (sync.replace(pipelined_tracking=True), {}),
@@ -346,12 +346,14 @@ def test_ported_modes_construct(case):
         "loop_closing": (sync, dict(do_loop_closing=True)),
         "localization": (sync, dict(localization_mode=True)),
         "distortion": (sync.replace(dist_coeffs=(-0.28, 0.07, 0.0, 0.0)), {}),
+        "mesh_global_ba": (sync.replace(n_devices=2), dict(do_loop_closing=True)),
     }[case]
     system = TSystem(cfg, descriptor_fn=tpatch.apply, device="cpu", **kw)
     assert system.tracker.cfg is cfg
     if kw:
         assert system.local_mapper.loop_closer is system.loop_closer is not None
         assert system.loop_closer.tracer is system.tracer
+        assert system.loop_closer.cfg.n_devices == (2 if case == "mesh_global_ba" else 1)
         assert system.loop_closer.only_global_map == (case == "localization")
     assert system.tracker.localization_only == (case == "localization")
     assert system.tracker._may_insert_kfs == (case != "localization")
@@ -397,12 +399,10 @@ def test_tracker_and_mapper_refuse_what_waits():
     cfg = TConfig(**SMALL)
     store = TStore(4, 16, cfg.n_features)
     K = np.eye(3, dtype=np.float32)
-    # what waits: the loop closer's multi-device global BA
-    with pytest.raises(NotImplementedError):
-        TLoopCloser(cfg.replace(n_devices=2), K, store, device="cpu")
-    # what is ported builds: a localization tracker (no keyframes unless
-    # the map may extend), the asynchronous tracker, a mapper with a loop
-    # closer
+    # what is ported builds: a loop closer whose global BA runs over a mesh,
+    # a localization tracker (no keyframes unless the map may extend), the
+    # asynchronous tracker, a mapper with a loop closer
+    assert TLoopCloser(cfg.replace(n_devices=2), K, store, device="cpu").cfg.n_devices == 2
     loc = TTracker(cfg, K, None, store, localization_only=True, device="cpu")
     assert loc.localization_only and not loc._may_insert_kfs
     assert TTracker(cfg.replace(loc_extend_map=True), K, None, store, localization_only=True,
