@@ -72,12 +72,14 @@ def null_vector(A, iters: int = 12, eps: float = 1e-7):
 
     Inverse power iteration on (A^T A + eps*tr*I): converges to the
     eigenvector of the smallest eigenvalue.  Deterministic start vector.
+    An all-zero A (a RANSAC hypothesis with no rows) gives NaN for that
+    batch element, as the reference's LU does, instead of raising.
     """
     AtA = torch.einsum("...ki,...kj->...ij", A, A)
     n = A.shape[-1]
     tr = torch.diagonal(AtA, dim1=-2, dim2=-1).sum(-1)[..., None, None] / n
     M = AtA + eps * tr * torch.eye(n, dtype=A.dtype, device=A.device)
-    lu, piv = torch.linalg.lu_factor(M)
+    lu, piv, _ = torch.linalg.lu_factor_ex(M)
 
     x = torch.full(A.shape[:-2] + (n,), 1.0 / n ** 0.5, dtype=A.dtype, device=A.device)
     for _ in range(iters):

@@ -22,9 +22,9 @@ undistorts keypoints at extraction.  A map is saved and loaded as a binary
     loc.load_map("run.map")        # then track_monocular as above
 
 ``cfg.n_devices > 1`` runs the loop closer's global BA over a mesh of that
-many shards (``parallel/dist.py``).  The debug image raises
-``NotImplementedError`` by its ROADMAP name when called, and ``cfg.use_orb``
-is refused at construction for the reference's own reason
+many shards (``parallel/dist.py``).  ``save_debug_image`` writes the last
+keyframe's overlay as a PNG without matplotlib (``viz.draw_debug_overlay``).
+``cfg.use_orb`` is refused at construction for the reference's own reason
 (``ORB_REFUSAL``).
 """
 
@@ -36,6 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from asdslam_torch import viz
 from asdslam_torch.backend.local_mapping import LocalMapper
 from asdslam_torch.config import SlamConfig
 from asdslam_torch.frontend import extractor as extractor_mod
@@ -57,10 +58,6 @@ ORB_REFUSAL = (
     "System fails on its first bootstrap; ORB is ported as functions "
     "(asdslam_torch/ops/orb.py) and as the fused step's descriptor "
     "(make_extractor(cfg, orb.apply, rotate_patches=True)) (ROADMAP: Queue 3, use_orb)")
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
 
 
 def require_device(name: str) -> torch.device:
@@ -255,7 +252,21 @@ class System:
         results.save_result(self.store, out_dir, filenames)
 
     def save_debug_image(self, path: str, image=None):
-        raise _not_ported("save_debug_image", "the debug overlay, Queue 1 item 17")
+        """getDebugImg parity incl. the visual overlay (System.cc:214-261):
+        the last keyframe's observed keypoints and the reprojections of its
+        map points over ``image`` (an optional [H, W] gray backdrop, e.g.
+        the keyframe's frame; else a black canvas of the config's size),
+        with the reference's title, written as an RGB PNG
+        (``viz.draw_debug_overlay``; no matplotlib).  Returns the stats
+        dict of ``debug_info``."""
+        info, proj, obs_uv, ok = self.debug_info()
+        if isinstance(image, torch.Tensor):
+            image = image.detach().cpu().numpy()
+        caption = viz.debug_caption(info)
+        img = viz.draw_debug_overlay((self.cfg.image_height, self.cfg.image_width),
+                                     obs_uv, proj, ok, caption, backdrop=image)
+        viz.write_png_rgb(path, img, text=caption)
+        return info
 
     def stats(self):
         # deliberately does NOT flush the pipeline: it is called from

@@ -21,8 +21,12 @@ as PNG (a dependency-free zlib writer).  ``render_topdown`` rasterizes a
 top-down map view (trajectory + points + covisibility) so that a tracking
 run can emit an RViz-like animation headlessly.
 
+``draw_debug_overlay`` draws System::getDebugImg's overlay (observed
+keypoints, their reprojections, a caption band) into an RGB array with a
+small bitmap font, for ``write_png_rgb``: the port needs no matplotlib.
+
 Everything here is host-side numpy over the port's ``MapStore``: the files
-are byte for byte the reference's for the same inputs.
+of the sink are byte for byte the reference's for the same inputs.
 """
 
 from __future__ import annotations
@@ -41,24 +45,44 @@ from asdslam_torch.mapping.map_store import _pose_np
 # --------------------------------------------------------------------------- #
 # Encoders (dependency-free)
 # --------------------------------------------------------------------------- #
-def write_png_gray(path: str, img: np.ndarray):
-    """Write a [H, W] uint8 (or 0..1 float) grayscale PNG (zlib, no deps)."""
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    c = struct.pack(">I", len(data)) + tag + data
+    return c + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+
+
+def _write_png(path: str, a: np.ndarray, colour_type: int, text: Optional[str] = None):
+    """An 8-bit PNG of ``a`` ([H, W] gray or [H, W, 3] RGB, uint8), filter 0
+    on every row, with an optional ``tEXt`` "Title" chunk."""
+    h, w = a.shape[:2]
+    raw = b"".join(b"\x00" + a[i].tobytes() for i in range(h))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour_type, 0, 0, 0)))
+        if text is not None:
+            f.write(_png_chunk(b"tEXt", b"Title\x00" + text.encode("latin-1")))
+        f.write(_png_chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(_png_chunk(b"IEND", b""))
+
+
+def _to_u8(img) -> np.ndarray:
     a = np.asarray(img)
     if a.dtype != np.uint8:
         a = np.clip(np.asarray(a, np.float32) * 255.0, 0, 255).astype(np.uint8)
-    h, w = a.shape
-    raw = b"".join(b"\x00" + a[i].tobytes() for i in range(h))
+    return a
 
-    def chunk(tag, data):
-        c = struct.pack(">I", len(data)) + tag + data
-        return c + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
 
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", ihdr))
-        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(chunk(b"IEND", b""))
+def write_png_gray(path: str, img: np.ndarray):
+    """Write a [H, W] uint8 (or 0..1 float) grayscale PNG (zlib, no deps)."""
+    _write_png(path, _to_u8(img), colour_type=0)
+
+
+def write_png_rgb(path: str, img_u8: np.ndarray, text: Optional[str] = None):
+    """Write a [H, W, 3] uint8 RGB PNG (colour type 2); ``text`` goes into a
+    ``tEXt`` chunk under the keyword "Title"."""
+    a = np.ascontiguousarray(img_u8, np.uint8)
+    if a.ndim != 3 or a.shape[2] != 3:
+        raise ValueError(f"write_png_rgb takes [H, W, 3], got {a.shape}")
+    _write_png(path, a, colour_type=2, text=text)
 
 
 def write_ply_points(path: str, xyz: np.ndarray,
@@ -292,3 +316,136 @@ def render_topdown(store, size: int = 720, margin: float = 0.07,
         u, v = to_px(kfc[:, [0, 2]])
         img[v, u] = 1.0
     return np.clip(img * 255.0, 0, 255).astype(np.uint8)
+
+
+# --------------------------------------------------------------------------- #
+# The debug overlay (System::getDebugImg)
+# --------------------------------------------------------------------------- #
+# 5x7 bitmap glyphs for the characters of the overlay's strings: the title
+# "reproj err %.2f px, %d matches, %d KFs, %d MPs" (with "nan" / "inf" for
+# the error) and the legend words "observed" and "reprojected".
+_GLYPH_ROWS = {
+    " ": ".....|.....|.....|.....|.....|.....|.....",
+    "0": ".###.|#...#|#..##|#.#.#|##..#|#...#|.###.",
+    "1": "..#..|.##..|..#..|..#..|..#..|..#..|.###.",
+    "2": ".###.|#...#|....#|...#.|..#..|.#...|#####",
+    "3": "#####|...#.|..#..|...#.|....#|#...#|.###.",
+    "4": "...#.|..##.|.#.#.|#..#.|#####|...#.|...#.",
+    "5": "#####|#....|####.|....#|....#|#...#|.###.",
+    "6": "..##.|.#...|#....|####.|#...#|#...#|.###.",
+    "7": "#####|....#|...#.|..#..|.#...|.#...|.#...",
+    "8": ".###.|#...#|#...#|.###.|#...#|#...#|.###.",
+    "9": ".###.|#...#|#...#|.####|....#|...#.|.##..",
+    ".": ".....|.....|.....|.....|.....|.##..|.##..",
+    ",": ".....|.....|.....|.....|.##..|..#..|.#...",
+    "-": ".....|.....|.....|#####|.....|.....|.....",
+    "a": ".....|.....|.###.|....#|.####|#...#|.####",
+    "b": "#....|#....|#.##.|##..#|#...#|#...#|####.",
+    "c": ".....|.....|.###.|#....|#....|#...#|.###.",
+    "d": "....#|....#|.##.#|#..##|#...#|#...#|.####",
+    "e": ".....|.....|.###.|#...#|#####|#....|.###.",
+    "f": "..##.|.#..#|.#...|###..|.#...|.#...|.#...",
+    "h": "#....|#....|#.##.|##..#|#...#|#...#|#...#",
+    "i": "..#..|.....|.##..|..#..|..#..|..#..|.###.",
+    "j": "...#.|.....|..##.|...#.|...#.|#..#.|.##..",
+    "m": ".....|.....|##.#.|#.#.#|#.#.#|#...#|#...#",
+    "n": ".....|.....|#.##.|##..#|#...#|#...#|#...#",
+    "o": ".....|.....|.###.|#...#|#...#|#...#|.###.",
+    "p": ".....|.....|####.|#...#|####.|#....|#....",
+    "r": ".....|.....|#.##.|##..#|#....|#....|#....",
+    "s": ".....|.....|.###.|#....|.###.|....#|####.",
+    "t": ".#...|.#...|###..|.#...|.#...|.#..#|..##.",
+    "v": ".....|.....|#...#|#...#|#...#|.#.#.|..#..",
+    "x": ".....|.....|#...#|.#.#.|..#..|.#.#.|#...#",
+    "F": "#####|#....|#....|####.|#....|#....|#....",
+    "K": "#...#|#..#.|#.#..|##...|#.#..|#..#.|#...#",
+    "M": "#...#|##.##|#.#.#|#.#.#|#...#|#...#|#...#",
+    "P": "####.|#...#|#...#|####.|#....|#....|#....",
+}
+GLYPHS = {c: np.array([[ch == "#" for ch in row] for row in rows.split("|")])
+          for c, rows in _GLYPH_ROWS.items()}
+GLYPH_H, GLYPH_W, GLYPH_ADVANCE = 7, 5, 6
+# the caption band under the image: the title line, then the legend line
+BAND_H = 2 * (GLYPH_H + 4) + 2
+LIME = (0, 255, 0)
+RED = (255, 0, 0)
+WHITE = (255, 255, 255)
+# marker footprints as (dv, du) offsets: a disc of radius 1.5 px (the 3x3
+# block) for the observed keypoints, a 5-px "x" for the reprojections
+DISC = np.array([(dv, du) for dv in (-1, 0, 1) for du in (-1, 0, 1)])
+CROSS = np.array([(k, k) for k in range(-2, 3)] + [(k, -k) for k in range(-2, 3) if k])
+
+
+def debug_caption(info) -> str:
+    """The reference's title of the debug image (system.py's set_title)."""
+    return "reproj err %.2f px, %d matches, %d KFs, %d MPs" % (
+        info.get("mean_reproj_err", float("nan")), info.get("n_matches", 0),
+        info["n_keyframes"], info["n_map_points"])
+
+
+def _paint(canvas, centres_vu, footprint, colour, rows):
+    """Set ``colour`` at every pixel of ``footprint`` around each centre,
+    clipped to the first ``rows`` rows and the canvas's columns."""
+    if not len(centres_vu):
+        return
+    px = (centres_vu[:, None, :] + footprint[None]).reshape(-1, 2)
+    inside = ((px[:, 0] >= 0) & (px[:, 0] < rows)
+              & (px[:, 1] >= 0) & (px[:, 1] < canvas.shape[1]))
+    px = px[inside]
+    canvas[px[:, 0], px[:, 1]] = colour
+
+
+def draw_text(canvas, x: int, y: int, text: str, colour=WHITE):
+    """Draw ``text`` with the 5x7 glyphs, its top-left corner at (x, y),
+    clipped to the canvas.  A character without a glyph raises."""
+    h, w = canvas.shape[:2]
+    for i, ch in enumerate(text):
+        if ch not in GLYPHS:
+            raise ValueError(f"no glyph for {ch!r}")
+        vs, us = np.nonzero(GLYPHS[ch])
+        vs, us = vs + y, us + x + i * GLYPH_ADVANCE
+        ok = (vs >= 0) & (vs < h) & (us >= 0) & (us < w)
+        canvas[vs[ok], us[ok]] = colour
+
+
+def _rounded(uv, ok):
+    """Rounded (v, u) int pixel centres of the finite ``uv[ok]`` rows."""
+    uv = np.asarray(uv, np.float64)[np.asarray(ok, bool)]
+    uv = uv[np.isfinite(uv).all(axis=1)]
+    return np.rint(uv[:, ::-1]).astype(np.int64)
+
+
+def draw_debug_overlay(shape, obs_uv, proj, ok, caption: str,
+                       backdrop=None) -> np.ndarray:
+    """The debug image of System::getDebugImg without matplotlib.
+
+    The canvas is ``backdrop`` ([H, W] gray, 0..1 float or uint8, replicated
+    to three channels) or a black [H, W] = ``shape``.  Observed keypoints
+    ``obs_uv[ok]`` are lime discs of radius 1.5 px at their rounded pixel,
+    then the reprojections ``proj[ok]`` red 5-px crosses over them (the
+    reference's two scatters, in its order), clipped to the canvas.  Under
+    the image a band of ``BAND_H`` rows holds ``caption`` and the legend
+    (a lime disc "observed", a red cross "reprojected").  ``proj`` None
+    draws no marker.  Returns uint8 [H + BAND_H, W, 3]."""
+    if backdrop is not None:
+        gray = _to_u8(backdrop)
+        h, w = gray.shape
+    else:
+        h, w = shape
+        gray = np.zeros((h, w), np.uint8)
+    canvas = np.zeros((h + BAND_H, w, 3), np.uint8)
+    canvas[:h] = gray[..., None]
+    if proj is not None:
+        _paint(canvas, _rounded(obs_uv, ok), DISC, LIME, h)
+        _paint(canvas, _rounded(proj, ok), CROSS, RED, h)
+    draw_text(canvas, 2, h + 3, caption)
+    legend_y = h + 3 + GLYPH_H + 4
+    entries = [(DISC, LIME, "observed"), (CROSS, RED, "reprojected")]
+    width = sum(8 + len(word) * GLYPH_ADVANCE + 6 for _, _, word in entries)
+    x = max(2, w - width)                   # lower right, as the reference's legend
+    for footprint, colour, word in entries:
+        centre = np.array([[legend_y + GLYPH_H // 2, x + 2]])
+        _paint(canvas, centre, footprint, colour, canvas.shape[0])
+        draw_text(canvas, x + 8, legend_y, word)
+        x += 8 + len(word) * GLYPH_ADVANCE + 6
+    return canvas

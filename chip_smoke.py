@@ -148,7 +148,26 @@ Phases, each of which raises on failure (exit code != 0):
       phase's start): two ranks on the card over gloo (init_multihost's
       rule) agreeing with each other and with the in-process 2-shard mesh,
       and one NCCL rank at world size 1 bitwise the in-process 1-shard mesh;
-   and prints a `multi_device` JSON line.
+   and prints a `multi_device` JSON line;
+12. the last of the JAX repository's surfaces, through the port's own entry
+   points:
+   a. System.save_debug_image on phase 5's second System over its last
+      keyframe's frame (no matplotlib): the returned dict equals
+      debug_info()'s, the PNG reads back (this script's own decoder) equal
+      to the drawn overlay with the title in its tEXt chunk, every
+      reprojection's pixel red;
+   b. eval_kitti_proxy_torch.py at full width (1241x376, KITTI 03's
+      intrinsics) over 40 frames of each of two synthetic KITTI-like ground
+      truths that the phase writes (KITTI_PATHS), the first also with K1
+      replaced by its plain version on the card and with its frames
+      rendered on the CPU: the tracked share and
+      each of the three ATEs under a bar from the JAX package's
+      eval_kitti_proxy.py on the same files, masked_nn's launches by site,
+      and K1 against its plain version on a local-map search of the run;
+   c. mfu_bench_torch.py and profile_stages_torch.py in-process: their JSON
+      lines, every share of the roofline table in (0, 1.05], seven stages;
+      the matcher rows are logged beside phase 4's K1 times at the same
+      shapes.
 
 Prints a `kernels` JSON line before the last line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -165,10 +184,6 @@ import time
 
 import numpy as np
 
-# H100 SXM dense peaks (NVIDIA data sheet), for the bounds
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 # phases 3 and 5 are kept short: phase 6 takes most of the time limit
 N_CHAINED = 8          # frames of phase 3's chain
 N_SYSTEM = 20          # frames of phase 5
@@ -256,6 +271,29 @@ REF_ORB = dict(n_inliers=[1982, 1984, 1981, 1823, 1770, 1738, 1671, 1624],
 ORB_INLIER_SHARE = 0.9
 ORB_POSE_BAR = max(2 * REF_ORB["max_pose_err"], 0.01)
 ASSIGN_SHAPE = (500, 400)
+# Phase 12b: eval_kitti_proxy_torch.py at full width over N_KITTI frames of
+# each of two synthetic KITTI-like ground truths (KITTI_PATHS: a car that
+# moves the first number of m a frame at 10 Hz, turning right by the second
+# number of rad a frame) through KITTI 03's intrinsics.
+N_KITTI = 40
+KITTI_PATHS = {"right": (1.0, 0.01), "left": (0.8, -0.015)}
+KITTI03_CAM = "721.5377,721.5377,609.5593,172.854"   # fx, fy, cx, cy
+KITTI_ATES = ("ate_sim3_m", "ate_kf_sim3_m", "ate_frame_recomposed_m")
+# The JAX package's eval_kitti_proxy.py on the same ground truths, on a CPU
+# (python tests/test_torch_kitti_eval.py --reference-phase12): tracked of 40,
+# keyframes and the three sim3 ATEs (frames, keyframes, recomposed) over a
+# 39.0 m ("right") and a 31.2 m ("left") path.  The port is held to 75%
+# tracked and each ATE under twice the JAX package's value of that ATE on
+# that path.
+REF_KITTI = {
+    "right": dict(tracked=36, keyframes=16, ate_sim3_m=0.196, ate_kf_sim3_m=0.137,
+                  ate_frame_recomposed_m=0.184),
+    "left": dict(tracked=34, keyframes=16, ate_sim3_m=0.218, ate_kf_sim3_m=0.176,
+                 ate_frame_recomposed_m=0.167),
+}
+KITTI_TRACKED_BAR = 0.75
+KITTI_ATE_BARS = {path: {key: 2 * ref[key] for key in KITTI_ATES}
+                  for path, ref in REF_KITTI.items()}
 
 
 def log(*a):
@@ -270,16 +308,12 @@ def card_line():
 
 
 def time_ms(fn, reps):
+    """ms a call of ``fn``: one window of ``reps`` chained calls after a
+    warm-up call, by CUDA events (the measurement scripts' timer)."""
     import torch
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from asdslam_torch.utils import roofline
+
+    return roofline.time_ms(fn, torch.device("cuda"), reps, windows=1)
 
 
 # --------------------------------------------------------------------------- #
@@ -452,15 +486,17 @@ def k1_full_args(args):
 
 
 def k1_bound_ms(args, pairs_in):
-    """Least time for the function on these inputs: bytes (each input read
-    once, each output written once) over the memory rate, or the bf16 dot of
-    the pairs that pass the gates (what this data needs; a culling kernel
-    does not evaluate the gate for every pair) over the bf16 peak, whichever
-    is larger."""
-    n, d = args[0].shape
-    in_bytes = sum(a.numel() * a.element_size() for a in args[:9])
-    t_bytes = (in_bytes + n * 12) / PEAK_BYTES
-    t_ops = 2.0 * d * pairs_in / PEAK_BF16_FLOPS
+    """Least time for the function on these inputs: its bytes (each input
+    read once, each output written once) over the memory rate, or the bf16
+    dot of the pairs that pass the gates (what this data needs; a culling
+    kernel does not evaluate the gate for every pair) over the bf16 peak,
+    whichever is larger.  The counts are the roofline module's, which
+    mfu_bench_torch.py's matcher rows use too."""
+    from asdslam_torch.utils.roofline import H100, matcher_bytes, matcher_flops
+
+    (n, d), m = args[0].shape, args[1].shape[0]
+    t_bytes = matcher_bytes(n, m, d) / H100["bytes"]
+    t_ops = matcher_flops(pairs_in, d) / H100["bf16"]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1424,6 +1460,26 @@ def write_kitti_dir(root, frames_u8, cfg):
     return seq, cam
 
 
+def write_kitti_ground_truth(root, path="right", n=N_KITTI):
+    """A KITTI-like ground truth in the reference repository's layout under
+    ``root`` (the kitti_proxy module's GT_DIR and CAM_DIR both point there):
+    nvidia_asnd_KITTI03/stamped_groundtruth.txt, ``n`` TUM rows at 10 Hz of
+    KITTI_PATHS[path]'s car, and kitti03.txt with KITTI 03's intrinsics.
+    Synthetic: not KITTI's path."""
+    step, yaw = KITTI_PATHS[path]
+    os.makedirs(os.path.join(root, "nvidia_asnd_KITTI03"), exist_ok=True)
+    a = yaw * np.arange(n)
+    # the camera's forward axis in the world is (sin a, 0, cos a)
+    x = np.concatenate([[0.0], np.cumsum(step * np.sin(a[1:]))])
+    z = np.concatenate([[0.0], np.cumsum(step * np.cos(a[1:]))])
+    with open(os.path.join(root, "nvidia_asnd_KITTI03", "stamped_groundtruth.txt"), "w") as f:
+        for i in range(n):   # ts tx ty tz qx qy qz qw of T_wc, a rotation about y
+            f.write(f"{0.1 * i:.6f} {x[i]:.6f} 0.000000 {z[i]:.6f} 0.000000 "
+                    f"{np.sin(a[i] / 2):.9f} 0.000000 {np.cos(a[i] / 2):.9f}\n")
+    with open(os.path.join(root, "kitti03.txt"), "w") as f:
+        f.write(KITTI03_CAM + "\n")
+
+
 def run_entry(main_fn, argv):
     """``main_fn(argv)`` with masked_nn's launches counted by call site and
     its standard output captured.  Returns (what it returned, its output,
@@ -1462,6 +1518,41 @@ def local_map_search(cfg):
         yield kept
     finally:
         k1.masked_nn = real_nn
+
+
+@contextlib.contextmanager
+def plain_k1():
+    """Every masked_nn call made inside the block goes to its plain version,
+    on the card too; nothing is launched or counted."""
+    from asdslam_torch.ops import masked_nn as k1
+
+    real_nn = k1.masked_nn
+    k1.masked_nn = lambda *args: k1.masked_nn_plain(*k1_full_args(args))
+    try:
+        yield {}
+    finally:
+        k1.masked_nn = real_nn
+
+
+@contextlib.contextmanager
+def cpu_rendered(kitti_proxy, device):
+    """A kitti_proxy.KittiProxySequence built inside the block renders on
+    the CPU and hands each frame to ``device``."""
+    cls = kitti_proxy.KittiProxySequence
+    init, getitem = cls.__init__, cls.__getitem__
+
+    def init_cpu(self, *a, **kw):
+        init(self, *a, **dict(kw, device="cpu"))
+
+    def getitem_to(self, i):
+        ts, img = getitem(self, i)
+        return ts, img.to(device)
+
+    cls.__init__, cls.__getitem__ = init_cpu, getitem_to
+    try:
+        yield {}
+    finally:
+        cls.__init__, cls.__getitem__ = init, getitem
 
 
 def last_json(text):
@@ -2359,6 +2450,186 @@ def phase11(cfg, device, card, loop_system):
     return out, launches
 
 
+# --------------------------------------------------------------------------- #
+# Phase 12: the debug image, the KITTI-proxy twin, the measurement twins
+# --------------------------------------------------------------------------- #
+def read_png_rgb(path):
+    """(uint8 [H, W, 3], {tEXt keyword: text}) of an 8-bit RGB PNG whose
+    rows all use filter 0, as viz.write_png_rgb writes them."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, idat, text = 8, b"", {}
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if zlib.crc32(tag + body) & 0xFFFFFFFF != struct.unpack(">I", data[pos + 8 + n:
+                                                                         pos + 12 + n])[0]:
+            raise AssertionError(f"{path}: bad CRC in {tag}")
+        if tag == b"IHDR":
+            w, h, depth, colour = struct.unpack(">IIBB", body[:10])
+            if (depth, colour) != (8, 2):
+                raise AssertionError(f"{path}: depth {depth}, colour type {colour}")
+        elif tag == b"IDAT":
+            idat += body
+        elif tag == b"tEXt":
+            key, value = body.split(b"\x00", 1)
+            text[key.decode("latin-1")] = value.decode("latin-1")
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: a row filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3).copy(), text
+
+
+def phase12(cfg, device, card, mapped, frames_u8, errs, k1_cases):
+    """12a-12c (module docstring).  ``mapped`` is phase 5's second System
+    and ``frames_u8`` its frames.  Adds 12b's local-map search to
+    ``k1_cases`` / ``errs`` and returns the numbers for the JSON line, with
+    12b's masked_nn launches by site and 12c's two JSON lines."""
+    import tempfile
+    import torch
+    import eval_kitti_proxy_torch
+    import mfu_bench_torch
+    import profile_stages_torch
+    from asdslam_torch import viz
+    from asdslam_torch.io import kitti_proxy
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 12a: the debug image over the last keyframe's frame --------- #
+        s = mapped.store
+        k = int(np.flatnonzero(s.kf_valid)[-1])
+        frame = frames_u8[int(s.kf_frame_id[k])]
+        path = os.path.join(tmp, "debug.png")
+        t0 = time.perf_counter()
+        info = mapped.save_debug_image(path, image=frame)
+        sec = time.perf_counter() - t0
+        ref, proj, obs, ok = mapped.debug_info()
+        img, text = read_png_rgb(path)
+        want = viz.draw_debug_overlay(frame.shape, obs, proj, ok, viz.debug_caption(ref),
+                                      backdrop=frame.numpy())
+        if info != ref or not info["n_matches"]:
+            raise AssertionError(f"12a: save_debug_image returned {info}, debug_info {ref}")
+        if img.shape != (cfg.image_height + viz.BAND_H, cfg.image_width, 3) \
+                or not np.array_equal(img, want) or text != {"Title": viz.debug_caption(ref)}:
+            raise AssertionError(f"12a: the PNG reads back as {img.shape} {text}")
+        centres = np.rint(proj[ok][:, ::-1]).astype(np.int64)
+        inside = ((centres >= 0) & (centres < (cfg.image_height, cfg.image_width))).all(1)
+        if not (img[centres[inside, 0], centres[inside, 1]] == viz.RED).all():
+            raise AssertionError("12a: a reprojection's pixel is not red")
+        out["12a"] = dict(info=info, png_bytes=os.path.getsize(path), shape=list(img.shape),
+                          seconds=sec)
+        log(f"12a save_debug_image over keyframe {k}'s frame: {info}; a {img.shape} PNG of "
+            f"{out['12a']['png_bytes']} bytes read back equal to the drawn overlay, title "
+            f"{text['Title']!r}; {sec * 1e3:.1f} ms [{card}]")
+
+        # ---- 12b: eval_kitti_proxy_torch on two synthetic KITTI-like paths  #
+        # "right" through K1, then again through K1's plain version on the
+        # card and with the frames rendered on the CPU (what each adds to the
+        # gap between the card's ATEs and the CPU's), "left" through K1
+        saved = kitti_proxy.GT_DIR, kitti_proxy.CAM_DIR
+        runs, launches, by_site = {}, 0, {}
+        routes = {"kernel": lambda: local_map_search(cfg), "plain": plain_k1,
+                  "cpu_frames": lambda: cpu_rendered(kitti_proxy, device)}
+        try:
+            for path, route in (("right", "kernel"), ("right", "plain"),
+                                ("right", "cpu_frames"), ("left", "kernel")):
+                root = os.path.join(tmp, path)
+                write_kitti_ground_truth(root, path)
+                kitti_proxy.GT_DIR = kitti_proxy.CAM_DIR = root
+                kernel = route != "plain"
+                with routes[route]() as kept:
+                    (system, result), text, run_b, sec = run_entry(
+                        eval_kitti_proxy_torch.main,
+                        ["--device", device, "--out", os.path.join(root, f"{route}.json")])
+                line = last_json(text)
+                if (result["frames"], result["scale"]) != (N_KITTI, 1.0) \
+                        or system.cfg.image_width != 1241 \
+                        or system.cfg.fx != float(KITTI03_CAM.split(",")[0]):
+                    raise AssertionError(f"12b: not the full-width KITTI 03 camera: {line}")
+                if result["tracked"] < KITTI_TRACKED_BAR * N_KITTI:
+                    raise AssertionError(f"12b {path} {route}: {result['tracked']} of {N_KITTI} "
+                                         f"tracked")
+                bars = KITTI_ATE_BARS[path]
+                for key in KITTI_ATES:
+                    if not result.get(key, np.inf) < bars[key]:
+                        raise AssertionError(f"12b {path} {route}: {key} {result.get(key)} >= "
+                                             f"{bars[key]}")
+                if kernel and (run_b["by_site"].get("step", 0) < 1
+                               or run_b["by_site"].get("fuse", 0) < 1
+                               or (route == "kernel" and "args" not in kept)):
+                    raise AssertionError(f"12b {path}: masked_nn launches {run_b['by_site']}")
+                if not kernel and run_b["launches"]:
+                    raise AssertionError(f"12b {path} plain: masked_nn launched "
+                                         f"{run_b['by_site']}")
+                if route == "kernel" and path == "right":
+                    case = "KITTI proxy local-map search"
+                    err, pairs_in, share = check_k1(case, kept["args"])
+                    errs.append(err)
+                    k1_cases[case] = (kept["args"], pairs_in, share)
+                if kernel:
+                    launches += run_b["launches"]
+                    for site, c in run_b["by_site"].items():
+                        by_site[site] = by_site.get(site, 0) + c
+                render = system.tracer.spans["render"].total
+                runs[f"{path}_{route}"] = dict(
+                    result={k: v for k, v in result.items() if k not in ("drift", "drift_kf")},
+                    render_s=render, seconds=sec, launches=run_b["launches"],
+                    by_site=run_b["by_site"])
+                log(f"12b eval_kitti_proxy_torch.py (1241x376, KITTI 03's intrinsics, {N_KITTI} "
+                    f"frames of the synthetic path {path!r}: {KITTI_PATHS[path][0]} m and "
+                    f"{KITTI_PATHS[path][1]} rad of yaw a frame), "
+                    + {"kernel": "K1", "plain": "K1 replaced by its plain version",
+                       "cpu_frames": "K1, the frames rendered on the CPU"}[route] + ": tracked "
+                    f"{result['tracked']}, keyframes {result['keyframes']}, sim3 ATE frame / "
+                    f"keyframe / recomposed " + " / ".join(str(result.get(k)) for k in KITTI_ATES)
+                    + f" m over {result['path_length_m']} m (bars: tracked >= {KITTI_TRACKED_BAR} "
+                    f"of the frames, ATEs < " + " / ".join(f"{bars[k]:.3f}" for k in KITTI_ATES)
+                    + f"; the JAX package's eval_kitti_proxy.py on a CPU {REF_KITTI[path]}); "
+                    f"{result['fps']} frames/s, {result['fps_tracking']} without the render span "
+                    f"({render:.2f} s over {N_KITTI} renders); masked_nn launches "
+                    f"{run_b['launches']} {run_b['by_site']}; {sec:.1f} s [{card}]")
+        finally:
+            kitti_proxy.GT_DIR, kitti_proxy.CAM_DIR = saved
+        out["12b"] = dict(runs=runs, tracked_bar=KITTI_TRACKED_BAR, ate_bars_m=KITTI_ATE_BARS,
+                          ref=REF_KITTI, launches=launches, by_site=by_site)
+        spread = {k: [runs[r]["result"].get(k) for r in runs] for k in KITTI_ATES}
+        log(f"12b the runs' ATEs ({', '.join(runs)}): {spread}")
+
+    # ---- 12c: the measurement twins in-process ---------------------------- #
+    for name, main_fn in (("mfu_bench_torch", mfu_bench_torch.main),
+                          ("profile_stages_torch", profile_stages_torch.main)):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            ret = main_fn(["--device", device])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        lines = buf.getvalue().splitlines()
+        if json.loads(lines[-1]) != ret or ret["card"] != card:
+            raise AssertionError(f"12c: {name} printed {lines[-1][:300]}")
+        for l in lines:
+            log(f"  {name}: {l}")
+        out[name] = dict(ret, seconds=sec)
+    rows = out["mfu_bench_torch"]["kernels"]
+    for r in rows:
+        shares = [r[k] for k in ("mfu", "bw_util", "sol_frac")]
+        if any(x is None or not 0 < x <= 1.05 for x in shares):
+            raise AssertionError(f"12c: {r}")
+    if len(out["profile_stages_torch"]["stages"]) != 7:
+        raise AssertionError(f"12c: stages {out['profile_stages_torch']['stages']}")
+    log("12c roofline: " + "; ".join(
+        f"{r['name']} {r['ms']:.3f} ms, MFU {r['mfu']:.3g} of the {r['peak']} peak, bandwidth "
+        f"{r['bw_util']:.3g}, {r['bound']}-bound, sol_frac {r['sol_frac']:.3g}" for r in rows)
+        + f" [{card}]")
+    return out
+
+
 def tree_leaves(x):
     if isinstance(x, tuple):
         return [leaf for f in x for leaf in tree_leaves(f)]
@@ -2549,6 +2820,12 @@ def main():
     multi_device["seconds"] = time.perf_counter() - t0
     log(json.dumps({"multi_device": multi_device, "card": card}))
     stamp("phase 11")
+    # ---- 12. the debug image, the KITTI-proxy twin, the measurement twins -- #
+    t0 = time.perf_counter()
+    tools = phase12(cfg, device, card, second["system"], frames_u8, errs, k1_cases)
+    tools["seconds"] = time.perf_counter() - t0
+    launches_kitti = tools["12b"]["launches"]
+    stamp("phase 12")
 
     # K1 by shape.  Everything that reads a clock comes before the first use
     # of torch.profiler: once it has traced, later launches of the process
@@ -2558,7 +2835,7 @@ def main():
                  "frame 1 motion search", "frame 1 local-map search", "keyframe fuse",
                  "loop guided search", "loop fuse", "relocalization search",
                  "EuRoC proxy local-map search", "trained weights local-map search",
-                 "motion 2000x2000x256 d256", "local-map 8192x2000x256 d256",
+                 "KITTI proxy local-map search", "motion 2000x2000x256 d256", "local-map 8192x2000x256 d256",
                  "ORB motion 2000x2000x256", "ORB local-map 8192x2000x256"):
         args, pairs_in, share = k1_cases[case]
         bound, bound_by = k1_bound_ms(args, pairs_in)
@@ -2579,6 +2856,16 @@ def main():
             f"live tile pairs {sh['live_tile_share']:.4f}, bound {sh['bound_ms']:.5f} ms "
             f"({sh['bound_by']}); host enqueue {sh['host_enqueue_ms']:.4f} ms, device "
             + ", ".join(f"{k} {v:.4f}" for k, v in sh["device_ms"].items()) + f" ms [{card}]")
+    mfu_rows = {r["name"]: r for r in tools["mfu_bench_torch"]["kernels"]}
+    for row, case in (("match_motion_2000x2000", "motion 2000x2000"),
+                      ("match_localmap_8192x2000", "local-map 8192x2000")):
+        sh = next(x for x in shapes if x["shape"] == case)
+        log(f"{row}: mfu_bench_torch's search_projection (its random inputs, a 15 px window, "
+            f"{mfu_rows[row]['pairs_in']} gated-in pairs, median of 5 windows of 10 calls) "
+            f"{mfu_rows[row]['ms']:.4f} ms, least {mfu_rows[row]['sol_ms']:.5f} ms "
+            f"({mfu_rows[row]['bound']}), sol_frac {mfu_rows[row]['sol_frac']:.5f}; beside it "
+            f"K1's masked_nn on phase 2's {case} ({sh['gated_in_pairs']} gated-in pairs) "
+            f"{sh['ms']:.4f} ms (bound {sh['bound_ms']:.5f} ms, {sh['bound_by']}) [{card}]")
     t_busy, t_wall, t_top = train_busy(device)
     training["profile"] = dict(steps=10, busy_ms=t_busy, wall_ms=t_wall, top_kernels_ms=t_top)
     log(f"profiler over 10 training steps at batch {TRAIN_BATCH}: device busy {t_busy:.1f} ms of "
@@ -2592,7 +2879,8 @@ def main():
         "source": "asdslam_torch/csrc/masked_nn.cu",
         "replaces": "asdslam_tpu/ops/pallas_match.py:42",
         "launches": (launches + launches_system + default["launches"] + launches_loc
-                     + launches_entry + launches_train + launches_orb + launches_multi),
+                     + launches_entry + launches_train + launches_orb + launches_multi
+                     + launches_kitti),
         "max_abs_err": max(errs),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
@@ -2619,9 +2907,11 @@ def main():
                              "trained_weights": launches_train,
                              "trained_weights_by_site": training["9c"]["by_site"],
                              "orb_chained_step": launches_orb,
-                             "multi_sequence": launches_multi},
+                             "multi_sequence": launches_multi,
+                             "kitti_eval": launches_kitti,
+                             "kitti_eval_by_site": tools["12b"]["by_site"]},
         "default_config": default, "localization": localization, "entry_points": entry,
-        "training": training, "orb_path": orb_path,
+        "training": training, "orb_path": orb_path, "phase12": tools,
         "system": {"frames": N_SYSTEM, "fps": system_fps,
                    "frame_ms_median": float(np.median(steady)),
                    "keyframe_frame_ms": [float(x) for x in frame_ms[is_kf]],

@@ -38,7 +38,11 @@ from chip_smoke import last_json, write_kitti_dir  # noqa: E402
 import display_map  # noqa: E402
 import display_map_torch  # noqa: E402
 import eval_euroc_proxy_torch  # noqa: E402
+import eval_kitti_proxy_torch  # noqa: E402
+import mfu_bench_torch  # noqa: E402
+import profile_stages_torch  # noqa: E402
 import run_slam  # noqa: E402
+import run_kitti_suite_torch  # noqa: E402
 import run_slam_torch  # noqa: E402
 import train_vocab  # noqa: E402
 import train_vocab_torch  # noqa: E402
@@ -58,7 +62,10 @@ def jax_script(*args, timeout=1800):
 
 SCRIPTS = {"run_slam_torch": run_slam_torch, "train_vocab_torch": train_vocab_torch,
            "eval_euroc_proxy_torch": eval_euroc_proxy_torch,
-           "display_map_torch": display_map_torch, "bench_torch": bench_torch}
+           "display_map_torch": display_map_torch, "bench_torch": bench_torch,
+           "eval_kitti_proxy_torch": eval_kitti_proxy_torch,
+           "run_kitti_suite_torch": run_kitti_suite_torch, "mfu_bench_torch": mfu_bench_torch,
+           "profile_stages_torch": profile_stages_torch}
 RESULT_FILES = ("traj", "track", "posi", "kps", "desc")
 
 

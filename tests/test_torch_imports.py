@@ -13,7 +13,9 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 # the port's entry points, twins of the JAX package's scripts
 SCRIPTS = ("run_slam_torch.py", "train_vocab_torch.py", "eval_euroc_proxy_torch.py",
-           "display_map_torch.py", "bench_torch.py", "train_asdnet_torch.py")
+           "display_map_torch.py", "bench_torch.py", "train_asdnet_torch.py",
+           "eval_kitti_proxy_torch.py", "run_kitti_suite_torch.py", "mfu_bench_torch.py",
+           "profile_stages_torch.py")
 FILES = (sorted((ROOT / "asdslam_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
          + [ROOT / s for s in SCRIPTS])
 FORBIDDEN = ("jax", "jaxlib", "asdslam_tpu")
@@ -42,6 +44,8 @@ MODULES = (
     "ops/orb.py", "ops/patches.py", "ops/assignment.py", "native/build.py", "native/loader.py",
     # multi-device: the mesh, the distributed BA, the batched tracking step
     "parallel/dist.py", "parallel/multi_seq.py",
+    # the measurement twins' peak rates and roofline rows
+    "utils/roofline.py",
 )
 
 

@@ -43,6 +43,19 @@ def test_null_vector(shape, tol):
     np.testing.assert_allclose(rj, rt, atol=1e-4)
 
 
+def test_null_vector_singular():
+    """An all-zero system (relocalization's PnP refit with no inlier rows)
+    gives NaN for its batch element, as the reference's LU does, and
+    leaves the other elements as they are; it does not raise."""
+    A = np.zeros((3, 8, 9), np.float32)
+    A[1] = np.random.default_rng(0).standard_normal((8, 9))
+    j = np.asarray(jl.null_vector(jnp.asarray(A)))
+    t = tl.null_vector(torch.tensor(A)).numpy()
+    assert np.isnan(j[[0, 2]]).all() and np.isnan(t[[0, 2]]).all()
+    np.testing.assert_allclose(t[1], j[1], atol=TOL)
+    np.testing.assert_array_equal(t[1], tl.null_vector(torch.tensor(A[1:2])).numpy()[0])
+
+
 def test_top_vector():
     g = np.random.default_rng(1)
     B = g.standard_normal((12, 6, 4)).astype(np.float32)

@@ -365,13 +365,6 @@ def test_ported_modes_construct(case):
     assert system.tracker._map_stream is None  # a CUDA stream only on a card
 
 
-@pytest.mark.parametrize("method,args", [("save_debug_image", ("x.png",))])
-def test_unported_methods_raise(method, args):
-    system = TSystem(TConfig(**SMALL), descriptor_fn=tpatch.apply, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(system, method)(*args)
-
-
 @pytest.mark.parametrize("method", ["save_map", "load_map", "save_result"])
 def test_ported_methods_run(method, tmp_path, port_run):
     """Persistence on the port (parity with the JAX package's files in
