@@ -19,7 +19,9 @@ and sums in the table's order, never a scatter-add, whose atomics would sum
 in a run-dependent order on a CUDA device.  The caller passes the tables as
 the reference's caller does; without them they are built here from one host
 read of the observation table.  The LM steps and the PCG are Python loops of
-fixed length whose accept/reject is a ``torch.where`` on the device.
+fixed length whose accept/reject is a ``torch.where`` on the device; they read
+nothing back (the preconditioner's inverse is ``inv_ex``, which checks no
+error, so a singular block gives inf/NaN as ``jnp.linalg.inv`` does).
 """
 
 from __future__ import annotations
@@ -131,7 +133,7 @@ def global_bundle_adjust(
         rhs = -(gc - seg_cam(t))  # solve S dc = -rhs'
 
         # block-Jacobi preconditioner
-        Minv = torch.linalg.inv(Hcc_d + 1e-8 * eye6[None])
+        Minv = torch.linalg.inv_ex(Hcc_d + 1e-8 * eye6[None]).inverse
 
         x = torch.zeros_like(rhs)
         rr = rhs - schur_matvec(x)

@@ -43,7 +43,7 @@ def triangulate_neighbors(
     the matched neighbour feature where the triangulation passed every
     check, else -1; and the triangulated world point.
     """
-    Kinv = torch.linalg.inv(K)
+    Kinv = torch.linalg.inv_ex(K).inverse
     xn1 = (triangulation.homog(f1_uv) @ Kinv.T)[:, :2]
     c1 = -(R1.T @ t1)
     lvl1 = f1_level.to(torch.int64)

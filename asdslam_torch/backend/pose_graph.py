@@ -140,7 +140,8 @@ def optimize_pose_graph(poses8, edges: PoseGraphEdges, fixed_mask,
         damp = lam_c * dvec + 1e-8                                # [K, 7]
         D_d = (D + damp[:, :, None] * eye7[None]) * free[:, None, None] \
             + fixedf[:, None, None] * eye7[None]
-        Minv = torch.linalg.inv(D_d)
+        # no error check, so no host read in the loop (jnp.linalg.inv's inf/NaN)
+        Minv = torch.linalg.inv_ex(D_d).inverse
 
         def matvec(v):
             # H restricted to free nodes (rows+cols of fixed zeroed, unit

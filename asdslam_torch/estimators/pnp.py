@@ -62,7 +62,7 @@ def ransac_pnp(g, X, uv, valid, K, chi2_px, min_inliers: int = 10, sample_size: 
     chi2_px [N] per-point squared pixel gates (5.991 * sigma2 of the octave).
     Returns PnPResult."""
     iters = g.shape[0]
-    Kinv = torch.linalg.inv(K)
+    Kinv = torch.linalg.inv_ex(K).inverse
     xn = (homog(uv) @ Kinv.T)[:, :2]
 
     samples = sample_rows(g, valid, sample_size)

@@ -165,7 +165,9 @@ def _score_h(H, x1, x2, valid, sigma):
     h1 = triangulation.homog(x1)
     h2 = triangulation.homog(x2)
     inv_s2 = 1.0 / (sigma * sigma)
-    Hinv = torch.linalg.inv(H)
+    # a singular hypothesis inverts to inf/NaN and scores nothing, as in the
+    # reference (torch.linalg.inv would raise)
+    Hinv = torch.linalg.inv_ex(H).inverse
 
     p12 = _dehomog(torch.einsum("sij,nj->sni", H, h1))
     chi2_2 = torch.sum((p12 - x2[None]) ** 2, dim=-1) * inv_s2
@@ -241,7 +243,7 @@ def _decompose_h(H, K):
     Mirrors Initializer::ReconstructH (Initializer.cc:~760): A = K^-1 H K,
     SVD(A) = U diag(d1,d2,d3) V^T, 8 solutions for d' = +-d2.
     """
-    Kinv = torch.linalg.inv(K)
+    Kinv = torch.linalg.inv_ex(K).inverse
     A = Kinv @ H @ K
     U, s, Vt = linalg.svd3(A[None])
     U, Vt = U[0], Vt[0]
@@ -329,7 +331,7 @@ def initialize_two_view(
 
     p1n, T1 = _normalize_points(uv1, valid)
     p2n, T2 = _normalize_points(uv2, valid)
-    T2inv = torch.linalg.inv(T2)
+    T2inv = torch.linalg.inv_ex(T2).inverse
 
     # ---- fundamental.  No explicit rank-2 projection after the refit: it is
     # near rank-2 already and the E-decomposition zeroes sigma3 anyway.
@@ -351,7 +353,7 @@ def initialize_two_view(
     use_h = SH / _clip_lo(SH + SF, 1e-12) > 0.40
 
     # ---- reconstruct both, select at the end (batched; no host branch)
-    Kinv = torch.linalg.inv(K)
+    Kinv = torch.linalg.inv_ex(K).inverse
     xn1 = (triangulation.homog(uv1) @ Kinv.T)[:, :2]
     xn2 = (triangulation.homog(uv2) @ Kinv.T)[:, :2]
     sigma_norm = sigma / fmean

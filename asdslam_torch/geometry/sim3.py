@@ -8,8 +8,9 @@ g2o types_seven_dof_expmap) and the essential-graph pose optimizer
 Packed storage: ``[..., 8] = (qw, qx, qy, qz, tx, ty, tz, log_s)``.
 Tangent: ``[..., 7] = (omega[3], upsilon[3], sigma)``.
 
-``sim3_log`` solves its 3x3 system with ``torch.linalg.solve``, a library
-call as the reference's ``jnp.linalg.solve`` is.
+``sim3_log`` solves its 3x3 system with ``torch.linalg.solve_ex``, a library
+call as the reference's ``jnp.linalg.solve`` is, and like it neither raises
+on a singular system (the result is inf/NaN) nor waits for the device.
 """
 
 from __future__ import annotations
@@ -112,7 +113,7 @@ def sim3_log(s, R, t):
     sigma = torch.log(s)
     w = se3.so3_log(R)
     W = _W_matrix(w, sigma)
-    v = torch.linalg.solve(W, t[..., None])[..., 0]
+    v = torch.linalg.solve_ex(W, t[..., None]).result[..., 0]
     return torch.cat([w, v, sigma[..., None]], dim=-1)
 
 

@@ -206,8 +206,13 @@ def raycast_grid(pose7, xn, yn, bmin, bmax, salt, tex_scale: float = 0.35,
     ray wins, the earlier box on a tie, as the reference's scan."""
     dev = xn.device
     R, t = se3.pose_unpack(torch.as_tensor(pose7, dtype=torch.float32).to(dev))
-    c = -(R.T @ t)
-    d = torch.stack([xn, yn, torch.ones_like(xn)], dim=-1) @ R  # R^T d_cam
+    # R^T t and R^T d_cam as sums of elementwise products in a fixed order,
+    # each rounded on its own, so that the card's frames are the CPU's: a
+    # matrix product rounds as its library pleases (cuBLAS and the CPU's
+    # BLAS part in the last bit, and a ray moved by a bit can cross a
+    # texture cell's edge)
+    c = -(R[0] * t[0] + R[1] * t[1] + R[2] * t[2])
+    d = torch.stack([xn * R[0, i] + yn * R[1, i] + R[2, i] for i in range(3)], dim=-1)
     inv_d = 1.0 / torch.where(d.abs() < 1e-9, torch.full_like(d, 1e-9), d)
     inv_d = inv_d.permute(2, 0, 1)                               # [3, H, W]
     # [B, 3] box corners relative to the camera, on the device
@@ -243,9 +248,12 @@ def raycast_grid(pose7, xn, yn, bmin, bmax, salt, tex_scale: float = 0.35,
     sel_a = torch.where(axis_hit == 0, p[..., 1], p[..., 0])
     sel_b = torch.where(axis_hit == 2, p[..., 1], p[..., 2])
 
-    # three value-noise octaves, each keyed on the box id (a per-pixel salt)
+    # three value-noise octaves, each keyed on the box id (a per-pixel salt).
+    # The cell size is a tensor on the device: divided by a Python float, a
+    # CUDA tensor is multiplied by the float's reciprocal instead, which
+    # moves a texture coordinate by a bit where the CPU's quotient does not
     def octave(mul, ds):
-        s = float(np.float32(tex_scale) * np.float32(mul))
+        s = torch.full((), float(np.float32(tex_scale) * np.float32(mul)), device=dev)
         return _hash01(_int32_floor(sel_a / s), _int32_floor(sel_b / s), salt_hit + ds)
 
     v_base = octave(1.0, 1)

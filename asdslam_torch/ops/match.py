@@ -135,7 +135,7 @@ def fundamental_from_poses(K, R1, t1, R2, t2):
         torch.stack([t12[2], zero, -t12[0]]),
         torch.stack([-t12[1], t12[0], zero]),
     ])
-    Kinv = torch.linalg.inv(K)
+    Kinv = torch.linalg.inv_ex(K).inverse
     return Kinv.T @ tx @ R12 @ Kinv
 
 

@@ -164,10 +164,28 @@ Phases, each of which raises on failure (exit code != 0):
       each of the three ATEs under a bar from the JAX package's
       eval_kitti_proxy.py on the same files, masked_nn's launches by site,
       and K1 against its plain version on a local-map search of the run;
+      each CPU-rendered frame rendered on the card too, and five frames of
+      the EuRoC proxy on both: the pixels that differ, those moved by more
+      than 1e-5 (in each frame at most 0.1% of them,
+      tests/test_torch_proxy.py's bar) and the largest difference (in each
+      frame at most 1e-6: the card's render is the CPU's but for the last
+      bits);
    c. mfu_bench_torch.py and profile_stages_torch.py in-process: their JSON
       lines, every share of the roofline table in (0, 1.05], seven stages;
       the matcher rows are logged beside phase 4's K1 times at the same
-      shapes.
+      shapes;
+13. the port's inverses and solves on singular input, and the LM loops:
+   a. the degenerate inputs that tests/test_torch_singular.py feeds to both
+      packages (singular_inputs: the two-view bootstrap with every feature
+      at one pixel, a singular T2 or K, singular homographies, PnP,
+      triangulation, the essential graph and global BA with a non-finite
+      input, sim3_log at s = 0, inv3x3 of a zero block) on the card against
+      the CPU: the same finiteness pattern, the same values within each
+      test's bar;
+   b. the host synchronisations of optimize_pose_graph and
+      global_bundle_adjust (set_sync_debug_mode("warn")) at 1 and 3 LM
+      iterations, which must be equal: the setup reads index tables back,
+      the loops nothing.
 
 Prints a `kernels` JSON line before the last line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1537,22 +1555,88 @@ def plain_k1():
 @contextlib.contextmanager
 def cpu_rendered(kitti_proxy, device):
     """A kitti_proxy.KittiProxySequence built inside the block renders on
-    the CPU and hands each frame to ``device``."""
+    the CPU and hands each frame to ``device``.  Each frame is rendered on
+    ``device`` too and compared with the CPU's: the yielded dict holds the
+    frames' ``pixel_gap``s in order under "gaps"."""
+    import torch
+
     cls = kitti_proxy.KittiProxySequence
     init, getitem = cls.__init__, cls.__getitem__
+    out = {"gaps": []}
 
     def init_cpu(self, *a, **kw):
         init(self, *a, **dict(kw, device="cpu"))
 
     def getitem_to(self, i):
         ts, img = getitem(self, i)
+        w = kitti_proxy.select_boxes(self.world, self.centers[i], self.n_boxes)
+        card = kitti_proxy.render_boxes(torch.as_tensor(self.gt_pose7[i]).to(device),
+                                        self.K.to(device), w.bmin, w.bmax, w.salt,
+                                        self.height, self.width)
+        out["gaps"].append(dict(frame=i, **pixel_gap(img, card)))
         return ts, img.to(device)
 
     cls.__init__, cls.__getitem__ = init_cpu, getitem_to
     try:
-        yield {}
+        yield out
     finally:
         cls.__init__, cls.__getitem__ = init, getitem
+
+
+# tests/test_torch_proxy.py's bar: a frame may differ from another render of
+# it on at most this share of its pixels by more than MOVED
+PIXEL_SHARE_BAR = 1e-3
+MOVED = 1e-5
+# the card's frames are the CPU's but for sigmoid's last bits (at most
+# 1.19e-7 apart on an H100): a pixel further apart fails
+CARD_GAP_BAR = 1e-6
+EUROC_GAP_FRAMES = (0, 325, 650, 975, 1299)   # of the 1,300-frame EuRoC proxy
+
+
+def pixel_gap(cpu, card):
+    """Pixels of two renders of a frame that differ at all and that moved
+    by more than MOVED, and the largest |difference|."""
+    d = (cpu.cpu() - card.cpu()).abs()
+    return dict(pixels=d.numel(), differ=int((d > 0).sum()), moved=int((d > MOVED).sum()),
+                max_abs=float(d.max()))
+
+
+def gap_sums(gaps):
+    """pixel_gap's counts summed over frames, the largest moved share of a
+    frame and the largest |difference|."""
+    out = {k: sum(g[k] for g in gaps) for k in ("pixels", "differ", "moved")}
+    return dict(out, frames=len(gaps), max_abs=max(g["max_abs"] for g in gaps),
+                frame_moved_share=max(g["moved"] / g["pixels"] for g in gaps))
+
+
+def gap_text(gaps):
+    s = gap_sums(gaps)
+    return (f"{s['frames']} frames: {s['differ']} of {s['pixels']} pixels differ "
+            f"(share {s['differ'] / s['pixels']:.3g}), {s['moved']} moved by more than "
+            f"{MOVED} (share {s['moved'] / s['pixels']:.3g}, in a frame at most "
+            f"{s['frame_moved_share']:.3g}, bar {PIXEL_SHARE_BAR}), largest |d| "
+            f"{s['max_abs']:.3g} (bar {CARD_GAP_BAR})")
+
+
+def check_gaps(what, gaps):
+    """Each frame within tests/test_torch_proxy.py's bar (at most
+    PIXEL_SHARE_BAR of its pixels moved by more than MOVED) and no pixel
+    further apart than CARD_GAP_BAR."""
+    for g in gaps:
+        if g["moved"] > PIXEL_SHARE_BAR * g["pixels"] or g["max_abs"] > CARD_GAP_BAR:
+            raise AssertionError(f"{what}: frame {g['frame']} rendered on the card against the "
+                                 f"CPU's: {g} (bars: moved share {PIXEL_SHARE_BAR}, |d| "
+                                 f"{CARD_GAP_BAR})")
+
+
+def euroc_render_gap(device):
+    """The EUROC_GAP_FRAMES of the EuRoC proxy (752x480 through the radtan
+    lens) rendered on ``device`` and on the CPU: their ``pixel_gap``s."""
+    from asdslam_torch.io import euroc_proxy
+
+    cpu = euroc_proxy.EurocProxySequence(device="cpu")
+    card = euroc_proxy.EurocProxySequence(device=device)
+    return [dict(frame=i, **pixel_gap(cpu[i][1], card[i][1])) for i in EUROC_GAP_FRAMES]
 
 
 def last_json(text):
@@ -1643,14 +1727,14 @@ def phase9(cfg, frames_u8, device, card, errs, k1_cases):
         if not abs(trained - REF_TRAIN["fpr95_asd_trained"]) <= TRAIN_FPR_BAND:
             raise AssertionError(f"9a: trained FPR@95 {trained} off the JAX package's "
                                  f"{REF_TRAIN['fpr95_asd_trained']} by more than {TRAIN_FPR_BAND}")
-        out["9a"] = dict(result=res, losses=losses, cache_s=cache_s, seconds=sec, ref=REF_TRAIN,
-                         band=TRAIN_FPR_BAND, launches=run_a["launches"])
         log(f"9a train_asdnet_torch.py --pairs_cache ({N_POOL} + {N_HELD_OUT} make_batch pairs, "
             f"written in {cache_s:.1f} s) --steps {N_STEPS} --batch {TRAIN_BATCH}: "
             f"{res['steps_per_s']} steps/s, train_s {res['train_s']} (training and the three "
             f"evaluations), FPR@95 trained {trained} / random {res['fpr95_asd_random']} / "
             f"classical {res['fpr95_patch_classical']} (the JAX package on a CPU {REF_TRAIN}, band "
             f"{TRAIN_FPR_BAND}); losses {[round(x, 4) for x in losses]}; {sec:.1f} s [{card}]")
+        out["9a"] = dict(result=res, losses=losses, cache_s=cache_s, seconds=sec, ref=REF_TRAIN,
+                         band=TRAIN_FPR_BAND, launches=run_a["launches"])
         # ---- 9b: the PhotoTour reader path ----------------------------------- #
         tour = os.path.join(tmp, "liberty")
         a, p = T.make_batch(T.draw_batch(torch.Generator().manual_seed(3), N_TOUR_POINTS, size=64),
@@ -2533,7 +2617,7 @@ def phase12(cfg, device, card, mapped, frames_u8, errs, k1_cases):
         # card and with the frames rendered on the CPU (what each adds to the
         # gap between the card's ATEs and the CPU's), "left" through K1
         saved = kitti_proxy.GT_DIR, kitti_proxy.CAM_DIR
-        runs, launches, by_site = {}, 0, {}
+        runs, launches, by_site, gaps = {}, 0, {}, {}
         routes = {"kernel": lambda: local_map_search(cfg), "plain": plain_k1,
                   "cpu_frames": lambda: cpu_rendered(kitti_proxy, device)}
         try:
@@ -2576,6 +2660,8 @@ def phase12(cfg, device, card, mapped, frames_u8, errs, k1_cases):
                     launches += run_b["launches"]
                     for site, c in run_b["by_site"].items():
                         by_site[site] = by_site.get(site, 0) + c
+                if route == "cpu_frames":
+                    gaps["kitti_right"] = kept["gaps"]
                 render = system.tracer.spans["render"].total
                 runs[f"{path}_{route}"] = dict(
                     result={k: v for k, v in result.items() if k not in ("drift", "drift_kf")},
@@ -2596,10 +2682,21 @@ def phase12(cfg, device, card, mapped, frames_u8, errs, k1_cases):
                     f"{run_b['launches']} {run_b['by_site']}; {sec:.1f} s [{card}]")
         finally:
             kitti_proxy.GT_DIR, kitti_proxy.CAM_DIR = saved
-        out["12b"] = dict(runs=runs, tracked_bar=KITTI_TRACKED_BAR, ate_bars_m=KITTI_ATE_BARS,
-                          ref=REF_KITTI, launches=launches, by_site=by_site)
         spread = {k: [runs[r]["result"].get(k) for r in runs] for k in KITTI_ATES}
         log(f"12b the runs' ATEs ({', '.join(runs)}): {spread}")
+
+        # ---- 12b: the card's renders against the CPU's --------------------- #
+        t0 = time.perf_counter()
+        gaps["euroc"] = euroc_render_gap(device)
+        for name, what in (("kitti_right", f"the {N_KITTI} frames of 'right'"),
+                           ("euroc", f"EuRoC-proxy frames {list(EUROC_GAP_FRAMES)}")):
+            log(f"12b renders, the card against the CPU, {what}: {gap_text(gaps[name])} "
+                f"[{card}]")
+            check_gaps(f"12b {name}", gaps[name])
+        out["12b"] = dict(runs=runs, tracked_bar=KITTI_TRACKED_BAR, ate_bars_m=KITTI_ATE_BARS,
+                          ref=REF_KITTI, launches=launches, by_site=by_site,
+                          render_gap={k: gap_sums(v) for k, v in gaps.items()},
+                          render_gap_s=time.perf_counter() - t0)
 
     # ---- 12c: the measurement twins in-process ---------------------------- #
     for name, main_fn in (("mfu_bench_torch", mfu_bench_torch.main),
@@ -2628,6 +2725,313 @@ def phase12(cfg, device, card, mapped, frames_u8, errs, k1_cases):
         f"{r['bw_util']:.3g}, {r['bound']}-bound, sol_frac {r['sol_frac']:.3g}" for r in rows)
         + f" [{card}]")
     return out
+
+
+# --------------------------------------------------------------------------- #
+# Phase 13: singular inputs and the LM loops' host synchronisations
+# --------------------------------------------------------------------------- #
+LM_ITERS = (1, 3)
+SING_N = 200
+SING_K = np.array([[500.0, 0.0, 320.0], [0.0, 500.0, 240.0], [0.0, 0.0, 1.0]], np.float32)
+
+
+def gba_problem_np(n_cams=5, n_pts=120, seed=5):
+    """A global-BA problem from numpy: cameras along x yawing 0.05 rad
+    apart, points in front, 0.3 px noise, the first two cameras fixed and
+    moved last (the reference's gauge order), the others and the points
+    perturbed.  Returns (poses7, points, pt_valid, cam_idx, pt_idx, uv,
+    inv_sigma2, valid, n_opt) for SING_K."""
+    g = np.random.default_rng(seed)
+    X = (g.uniform(-3, 3, (n_pts, 3)) + [0.0, 0.0, 8.0]).astype(np.float32)
+    yaw = 0.05 * np.arange(n_cams)
+    q = np.stack([np.cos(yaw / 2), 0 * yaw, np.sin(yaw / 2), 0 * yaw], 1)
+    t = np.stack([0.4 * np.arange(n_cams) - 1.0, 0 * yaw, 0.1 * np.arange(n_cams)], 1)
+    poses = np.concatenate([q, t], 1).astype(np.float32)
+    cam_idx = np.repeat(np.arange(n_cams), n_pts).astype(np.int32)
+    pt_idx = np.tile(np.arange(n_pts), n_cams).astype(np.int32)
+    c, s = np.cos(yaw)[cam_idx], np.sin(yaw)[cam_idx]
+    x, y, z = X[pt_idx].T
+    xc = np.stack([c * x + s * z, y, -s * x + c * z], 1) + t[cam_idx]
+    uv = (xc[:, :2] / xc[:, 2:] * 500.0 + [320.0, 240.0]
+          + 0.3 * g.standard_normal((len(cam_idx), 2))).astype(np.float32)
+    order = list(range(2, n_cams)) + [0, 1]
+    poses0 = poses[order]
+    poses0[:n_cams - 2, 4:] += (0.05 * g.standard_normal((n_cams - 2, 3))).astype(np.float32)
+    X0 = (X + 0.05 * g.standard_normal(X.shape)).astype(np.float32)
+    O = len(cam_idx)
+    cam_remap = np.argsort(order).astype(np.int32)[cam_idx]
+    return (poses0, X0, np.ones(n_pts, bool), cam_remap, pt_idx, uv,
+            np.ones(O, np.float32), np.ones(O, bool), n_cams - 2)
+
+
+def pose_graph_problem_np(n=40, seed=7):
+    """An essential graph from numpy: a chain of ``n`` sim3 keyframes 1 m
+    and 0.02 rad of yaw apart, drifted in every step (a bias and numpy's
+    noise of seed ``seed``), with edges to
+    the next and to the one after (weight 1) and a loop edge from the last
+    back to the first (weight 5), the first fixed.  Returns (poses8, i, j,
+    meas, weight, fixed)."""
+    import torch
+    from asdslam_torch.geometry import sim3
+
+    g = np.random.default_rng(seed)
+    step = torch.tensor([0.0, 0.02, 0.0, 1.0, 0.0, 0.0, 0.0])
+    drift = torch.tensor([0.0, 0.0, 0.01, 0.0, 0.02, 0.0, 0.004])
+    gt = [sim3.sim3_pack(torch.ones(()), torch.eye(3), torch.zeros(3))]
+    for _ in range(n - 1):
+        gt.append(sim3.retract(gt[-1], step))
+    est = [gt[0]]
+    for _ in range(n - 1):
+        noise = torch.tensor(g.normal(0, 0.005, 7), dtype=torch.float32)
+        est.append(sim3.retract(est[-1], step + drift + noise))
+    pairs = [(a, a + 1, 1.0) for a in range(n - 1)] + [(a, a + 2, 1.0) for a in range(n - 2)]
+    pairs.append((0, n - 1, 5.0))
+    meas = []
+    for a, b, _ in pairs:
+        Sa, Sb = sim3.sim3_unpack(gt[a]), sim3.sim3_unpack(gt[b])
+        meas.append(sim3.sim3_pack(*sim3.compose(*Sb, *sim3.inverse(*Sa))))
+    fixed = np.zeros(n, bool)
+    fixed[0] = True
+    return (torch.stack(est).numpy(), np.array([a for a, _, _ in pairs]),
+            np.array([b for _, b, _ in pairs]), torch.stack(meas).numpy(),
+            np.array([w for _, _, w in pairs], np.float32), fixed)
+
+
+def host_syncs(fn):
+    """The host synchronisations ``fn()`` makes on the card, each as the
+    "file:line" of the Python call that made it: the warnings of
+    torch.cuda.set_sync_debug_mode("warn") while it runs."""
+    import warnings
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+def lm_sync_counts(device):
+    """The essential graph's and global BA's host synchronisations at each
+    of LM_ITERS iterations, on pose_graph_problem_np and gba_problem_np
+    uploaded to ``device``: {"pose_graph": {iters: [their "file:line"]},
+    "global_ba": ...}."""
+    import torch
+    from asdslam_torch.backend import ba, global_ba, pose_graph
+
+    def dev(x):
+        return torch.as_tensor(x).to(device)
+
+    poses8, i, j, meas, w, fixed = map(dev, pose_graph_problem_np())
+    edges = pose_graph.PoseGraphEdges(i=i, j=j, meas=meas, weight=w,
+                                      valid=torch.ones(len(w), dtype=torch.bool, device=device))
+    poses7, X, pt_valid, *obs, n_opt = gba_problem_np()
+    obs = ba.Obs(*map(dev, obs))
+    args = (dev(poses7), dev(X), dev(pt_valid), obs, dev(SING_K))
+    runs = {"pose_graph": lambda n: pose_graph.optimize_pose_graph(poses8, edges, fixed,
+                                                                    iters=n),
+            "global_ba": lambda n: global_ba.global_bundle_adjust(*args, n_opt=n_opt, iters=n)}
+    for run in runs.values():
+        host_syncs(lambda: run(1))  # warm: the process's one-off work is not the loop's
+    return {name: {n: host_syncs(lambda: run(n)) for n in LM_ITERS}
+            for name, run in runs.items()}
+
+
+def with_value(problem, k, at, value):
+    """``problem`` (a tuple of arrays) with element ``at`` of its ``k``-th
+    array set to ``value``."""
+    x = problem[k].copy()
+    x[at] = value
+    return problem[:k] + (x,) + problem[k + 1:]
+
+
+def singular_inputs():
+    """The singular and degenerate inputs of phase 13a, which
+    tests/test_torch_singular.py feeds to both packages: numpy arrays from
+    a generator of fixed seed, SING_N features where a function takes
+    features."""
+    import torch
+    from asdslam_torch.geometry import sim3
+
+    n = SING_N
+    g = np.random.default_rng(0)
+
+    def unit(x):
+        return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+    uv1 = g.uniform(0, 480, (n, 2)).astype(np.float32)
+    uv2 = (uv1 + g.normal(0, 1, uv1.shape)).astype(np.float32)
+    uv_far = uv1 + 1.0                # its mean deviation overflows: T2 singular
+    uv_far[3, 0] = 3e38
+    desc = unit(g.standard_normal((64, 128)))
+    pg, gba = pose_graph_problem_np(), gba_problem_np()
+    s = np.array([0.0, 1.0, 1.3, 0.0, 0.7], np.float32)
+    R = sim3.se3.so3_exp(torch.tensor(g.normal(0, 0.3, (5, 3)),
+                                    dtype=torch.float32)).numpy()
+    t = g.normal(0, 1, (5, 3)).astype(np.float32)
+    t[1, 0], t[2, 2] = np.inf, np.nan
+    return dict(
+        K=SING_K, K0=np.zeros((3, 3), np.float32), valid=np.ones(n, bool),
+        pixels={p: np.tile(np.asarray(p, np.float32), (n, 1)) for p in ((0.0, 0.0),
+                                                                         (100.0, 50.0))},
+        uv1=uv1, uv2=uv2, uv_far=uv_far,
+        # a zero, a rank-1, a regular and a rank-2 homography
+        H=np.stack([np.zeros((3, 3)), np.outer([1.0, 2.0, 3.0], [1.0, 0.0, 1.0]), np.eye(3),
+                    np.diag([1.0, 1.0, 0.0])]).astype(np.float32),
+        H_diag=np.diag([1.0, 1.2, 0.9]).astype(np.float32),
+        # (R1, t1, R2, t2) of fundamental_from_poses
+        poses=(np.eye(3, dtype=np.float32), np.zeros(3, np.float32),
+               np.eye(3, dtype=np.float32), np.ones(3, np.float32)),
+        X=(g.uniform(-2, 2, (n, 3)) + [0.0, 0.0, 6.0]).astype(np.float32),
+        chi2=np.full(n, 5.991, np.float32),
+        # triangulate_neighbors: a keyframe's descriptors and pixels, one
+        # neighbour's near copies of them 0.5 m to the side
+        tri=dict(desc=desc, uv=uv1[:64], nb_desc=unit(desc + 0.05 * g.standard_normal(
+            desc.shape)), nb_uv=(uv1[:64] + g.normal(0, 2, (64, 2))).astype(np.float32),
+            nb_t=np.array([0.5, 0.0, 0.0], np.float32)),
+        pose_graph={"a NaN measurement": with_value(pg, 3, (3, 4), np.nan),
+                    "an infinite measurement": with_value(pg, 3, (3, 4), np.inf)},
+        global_ba={"a NaN observation": with_value(gba, 5, (5, 0), np.nan),
+                   "an infinite observation": with_value(gba, 5, (5, 0), np.inf),
+                   "a NaN point": with_value(gba, 1, (2, 1), np.nan)},
+        sim3=(s, R, t),
+        zero_blocks=np.zeros((2, 3, 3), np.float32))
+
+
+def singular_cases():
+    """singular_inputs through the port: name -> a function of a device
+    that returns [(label, output, atol, rtol)] (atol None: the finiteness
+    pattern alone), with the bars of tests/test_torch_singular.py and a CPU
+    generator of fixed seed for the RANSAC draws."""
+    import torch
+    from asdslam_torch.backend import ba, global_ba, mapping_kernels, pose_graph
+    from asdslam_torch.estimators import linalg, pnp, twoview
+    from asdslam_torch.geometry import sim3
+    from asdslam_torch.ops import match
+
+    x = singular_inputs()
+    draws = torch.rand(300, SING_N, generator=torch.Generator().manual_seed(0))
+    eye, tri = np.eye(3, dtype=np.float32), x["tri"]
+
+    def on(dev, *xs):
+        return [torch.as_tensor(a).to(dev) for a in xs]
+
+    def two_view(uv1, uv2, K):
+        def run(dev):
+            r = twoview.initialize_two_view(*on(dev, draws[:200], uv1, uv2, x["valid"], K))
+            chosen = "score_h" if bool(r.used_homography) else "score_f"
+            return ([(f, getattr(r, f), 0.0, 1e-4 if f == chosen else 2e-2)
+                     for f in ("score_h", "score_f")]
+                    + [(f, getattr(r, f), None, None) for f in ("R", "t", "points")]
+                    + [(f, getattr(r, f), 0.0, 0.0) for f in ("success", "used_homography",
+                                                              "good")])
+        return run
+
+    def outputs(fn, atol=0.0, rtol=0.0):
+        return lambda dev: [(f"output {k}", o, atol, rtol) for k, o in enumerate(fn(dev))]
+
+    def tri_run(dev):
+        return mapping_kernels.triangulate_neighbors(
+            *on(dev, tri["desc"], tri["uv"], np.zeros(64, np.int64), np.ones(64, bool)),
+            on(dev, tri["nb_desc"]), on(dev, tri["nb_uv"]), on(dev, np.zeros(64, np.int64)),
+            *on(dev, np.ones((1, 64), bool), eye[None], tri["nb_t"][None], eye,
+                np.zeros(3, np.float32), x["K0"], np.ones(8, np.float32)),
+            max_dist=1.0, ratio=0.9, fmean=500.0)
+
+    def pg(problem):
+        def run(dev):
+            p, a, b, m, w, f = on(dev, *problem)
+            edges = pose_graph.PoseGraphEdges(i=a, j=b, meas=m, weight=w,
+                                              valid=torch.ones(len(w), dtype=torch.bool,
+                                                               device=dev))
+            return [pose_graph.optimize_pose_graph(p, edges, f, iters=3)]
+        return run
+
+    def gba(problem):
+        poses7, X, pt_valid, *obs, n_opt = problem
+
+        def run(dev):
+            return global_ba.global_bundle_adjust(*on(dev, poses7, X, pt_valid),
+                                                  ba.Obs(*on(dev, *obs)), *on(dev, SING_K),
+                                                  n_opt=n_opt, iters=3, cg_iters=20)
+        return run
+
+    (p0, p1), K, K0 = x["pixels"].values(), x["K"], x["K0"]
+    return {
+        "two-view, every feature at (0, 0)": two_view(p0, p0, K),
+        "two-view, every feature at (100, 50)": two_view(p1, p1, K),
+        "two-view, a feature at x = 3e38 (T2 singular)": two_view(x["uv1"], x["uv_far"], K),
+        "two-view, K = 0": two_view(x["uv1"], x["uv2"], K0),
+        "_score_h on singular hypotheses": outputs(
+            lambda dev: twoview._score_h(*on(dev, x["H"], x["uv1"], x["uv2"], x["valid"]), 1.0),
+            rtol=1e-4),
+        "fundamental_from_poses, K = 0": outputs(
+            lambda dev: [match.fundamental_from_poses(*on(dev, K0, *x["poses"]))]),
+        "_decompose_h, K = 0": outputs(lambda dev: twoview._decompose_h(*on(dev, x["H_diag"],
+                                                                           K0))),
+        "ransac_pnp, K = 0": outputs(lambda dev: pnp.ransac_pnp(*on(
+            dev, draws, x["X"], x["uv1"], x["valid"], K0, x["chi2"]))),
+        "triangulate_neighbors, K = 0": outputs(tri_run),
+        **{f"optimize_pose_graph, {k}": outputs(pg(v), atol=1e-5)
+           for k, v in x["pose_graph"].items()},
+        **{f"global_bundle_adjust, {k}": outputs(gba(v), atol=2e-5, rtol=1e-3)
+           for k, v in x["global_ba"].items()},
+        "sim3_log, s = 0 and a non-finite t": outputs(
+            lambda dev: [sim3.sim3_log(*on(dev, *x["sim3"]))], atol=1e-5, rtol=1e-4),
+        "inv3x3 of a zero block": outputs(lambda dev: [linalg.inv3x3(*on(dev,
+                                                                         x["zero_blocks"]))]),
+    }
+
+
+def check_singular(device):
+    """Each of singular_cases on ``device`` against the CPU: the same
+    finiteness pattern in every output, integer and boolean outputs equal,
+    finite values within the stated bars.  Returns {case: the number of
+    non-finite output elements on the card}."""
+    out = {}
+    for name, run in singular_cases().items():
+        nonfinite = 0
+        for (label, a, atol, rtol), (_, b, _, _) in zip(run(device), run("cpu")):
+            a, b = a.detach().cpu().numpy(), b.detach().numpy()
+            if a.dtype.kind != "f":
+                ok = np.array_equal(a, b)
+            else:
+                fin = np.isfinite(b)
+                ok = np.array_equal(np.isfinite(a), fin) and (
+                    atol is None or np.allclose(a[fin], b[fin], atol=atol, rtol=rtol))
+                nonfinite += int((~np.isfinite(a)).sum())
+            if not ok:
+                raise AssertionError(f"13a {name}: {label} on the card {a.ravel()[:8]} against "
+                                     f"the CPU's {b.ravel()[:8]}")
+        out[name] = nonfinite
+    return out
+
+
+def phase13(device, card):
+    """13a-13b (module docstring); returns the numbers for the JSON line."""
+    t0 = time.perf_counter()
+    nonfinite = check_singular(device)
+    log(f"13a singular and degenerate inputs, the card against the CPU, each output's "
+        f"finiteness pattern and values: {len(nonfinite)} cases agree; non-finite output "
+        f"elements on the card by case {nonfinite}; {time.perf_counter() - t0:.1f} s [{card}]")
+    syncs = lm_sync_counts(device)
+    counts = {k: {n: len(v) for n, v in by_iters.items()} for k, by_iters in syncs.items()}
+    log(f"13b host synchronisations (set_sync_debug_mode warnings) by LM iterations: "
+        + "; ".join(f"{k} " + ", ".join(f"{n} -> {len(c)} at {sorted(set(c))}"
+                                        for n, c in v.items())
+                    for k, v in syncs.items()) + f" [{card}]")
+    for name, by_iters in counts.items():
+        if len(set(by_iters.values())) != 1:
+            raise AssertionError(f"13b: {name}'s host synchronisations change with its LM "
+                                 f"iterations: {syncs[name]}")
+    return dict(singular_nonfinite=nonfinite, lm_syncs=counts,
+                seconds=time.perf_counter() - t0)
 
 
 def tree_leaves(x):
@@ -2826,6 +3230,9 @@ def main():
     tools["seconds"] = time.perf_counter() - t0
     launches_kitti = tools["12b"]["launches"]
     stamp("phase 12")
+    # ---- 13. singular inputs, the LM loops' host synchronisations ---------- #
+    faults = phase13(device, card)
+    stamp("phase 13")
 
     # K1 by shape.  Everything that reads a clock comes before the first use
     # of torch.profiler: once it has traced, later launches of the process
@@ -2911,7 +3318,7 @@ def main():
                              "kitti_eval": launches_kitti,
                              "kitti_eval_by_site": tools["12b"]["by_site"]},
         "default_config": default, "localization": localization, "entry_points": entry,
-        "training": training, "orb_path": orb_path, "phase12": tools,
+        "training": training, "orb_path": orb_path, "phase12": tools, "phase13": faults,
         "system": {"frames": N_SYSTEM, "fps": system_fps,
                    "frame_ms_median": float(np.median(steady)),
                    "keyframe_frame_ms": [float(x) for x in frame_ms[is_kf]],

@@ -16,8 +16,10 @@ SCRIPTS = ("run_slam_torch.py", "train_vocab_torch.py", "eval_euroc_proxy_torch.
            "display_map_torch.py", "bench_torch.py", "train_asdnet_torch.py",
            "eval_kitti_proxy_torch.py", "run_kitti_suite_torch.py", "mfu_bench_torch.py",
            "profile_stages_torch.py")
+# the port's measurement scripts that have no JAX twin (on the card only)
+CARD_SCRIPTS = ("train_determinism_torch.py",)
 FILES = (sorted((ROOT / "asdslam_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-         + [ROOT / s for s in SCRIPTS])
+         + [ROOT / s for s in SCRIPTS + CARD_SCRIPTS])
 FORBIDDEN = ("jax", "jaxlib", "asdslam_tpu")
 # calls that launch a hand-written kernel, directly or one level up
 LAUNCHES = ("masked_nn_launch", "masked_nn", "search_projection", "fuse_pairs")
@@ -100,7 +102,7 @@ def test_modules_import_without_jax():
     import subprocess
     import sys
     names = ["asdslam_torch." + m[:-3].replace("/", ".") for m in MODULES]
-    names += [s[:-3] for s in SCRIPTS]
+    names += [s[:-3] for s in SCRIPTS + CARD_SCRIPTS]
     code = (
         "import sys, importlib\n"
         "class Block:\n"
