@@ -18,7 +18,9 @@ left-multiplicative (exp(xi) * T), as ``se3.pose_retract``.
 
 The reference runs the LM steps in a ``lax.scan``; here they are a Python
 loop whose accept/reject is a ``torch.where`` on device, so the solve never
-waits on the host.
+waits on the host, and on the card each LM step of ``bundle_adjust`` is
+replayed from a CUDA graph (``utils/graphs.py``).  ``pose_only_optimize``
+runs inside the fused step's graph.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from asdslam_torch.estimators.linalg import chol_solve_small, inv3x3
 from asdslam_torch.geometry import se3
+from asdslam_torch.utils import graphs
 
 CHI2_MONO = 5.991
 
@@ -201,6 +204,114 @@ def build_pt_obs(pt_idx, valid, n_points: int, k_max: int):
 CAM_TRUST_REGION = 2.0
 
 
+def _total_cost(poses7, points, obs, K, obs_w_valid, huber: bool):
+    delta2 = CHI2_MONO
+    r, _, _, z = _project_residuals(poses7, points, obs, K)
+    chi2 = torch.sum(r * r, dim=1) * obs.inv_sigma2
+    if huber:
+        chi2 = torch.where(
+            chi2 <= delta2, chi2,
+            2.0 * torch.sqrt(delta2 * torch.clamp(chi2, min=1e-12)) - delta2)
+    return torch.sum(chi2 * obs_w_valid)
+
+
+def _lm_iteration(poses7, points, lam, cost, obs, K, pt_w, obs_w_valid, po, po_valid,
+                  cam_p, cam_is_opt, ohk, opt_cam, oh_cam_mask, n_opt: int, huber: bool,
+                  trust_region: float):
+    """One LM step of ``bundle_adjust``: (poses7, points, lam, cost) after
+    it.  The per-call invariants (the per-point observation lists and the
+    one-hot camera tables) are arguments, so one graph serves every call of
+    the same bucketed shapes: it is captured in a CUDA graph on the card
+    (``_lm_step``)."""
+    dev, dt = points.device, points.dtype
+    delta2 = CHI2_MONO
+    eye6 = torch.eye(6, dtype=dt, device=dev)
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    eye_s = torch.eye(n_opt * 6, dtype=dt, device=dev)
+
+    r, Jc, Jp, z = _project_residuals(poses7, points, obs, K)
+    chi2 = torch.sum(r * r, dim=1) * obs.inv_sigma2
+    w_h = _huber_weight(chi2, delta2) if huber else torch.ones_like(chi2)
+    w = obs.inv_sigma2 * w_h * obs_w_valid
+    wc = w * opt_cam
+
+    # camera blocks: one-hot over the few optimized cameras
+    oh_cam = oh_cam_mask * wc[:, None]                         # [O, A]
+    JcJc = torch.einsum("oki,okj->oij", Jc, Jc)
+    Hcc = torch.einsum("oa,oij->aij", oh_cam, JcJc)
+    Jcr = torch.einsum("oki,ok->oi", Jc, r)
+    gc = torch.einsum("oa,oi->ai", oh_cam, Jcr)
+
+    # point blocks: gather each point's observations via pt_obs
+    w_p = w[po] * po_valid                                     # [P, K]
+    Jp_p = Jp[po]                                              # [P, K, 2, 3]
+    r_p = r[po]
+    Hpp = torch.einsum("pkli,pk,pklj->pij", Jp_p, w_p, Jp_p)
+    gp = torch.einsum("pkli,pk,pkl->pi", Jp_p, w_p, r_p)
+
+    # LM damping: H += lam * diag(H)
+    dcc = torch.clamp(torch.diagonal(Hcc, dim1=1, dim2=2), min=1e-6)
+    Hcc = Hcc + lam * dcc[:, :, None] * eye6[None]
+    dpp = torch.clamp(torch.diagonal(Hpp, dim1=1, dim2=2), min=1e-6)
+    Hpp_d = Hpp + lam * dpp[:, :, None] * eye3[None] + 1e-8 * eye3[None]
+    Hpp_inv = inv3x3(Hpp_d)
+    Hpp_inv = torch.where(pt_w[:, None, None], Hpp_inv, torch.zeros_like(Hpp_inv))
+
+    # W blocks per observation: [O, 6, 3]
+    W = torch.einsum("oki,o,okj->oij", Jc, wc, Jp)
+
+    # Schur assembly over per-point observation lists: per-point
+    # per-camera sums via a small one-hot contraction, then the double sum
+    #     S[a, b] = sum_p (sum_{k->a} WHinv_k)(sum_{m->b} W_m)^T
+    # as one dense contraction over (p, l).
+    W_p = W[po] * po_valid[..., None, None]                   # [P, Kmax, 6, 3]
+    WHinv = torch.einsum("pkij,pjl->pkil", W_p, Hpp_inv)      # [P, Kmax, 6, 3]
+    camA = torch.einsum("pka,pkil->ailp", ohk, WHinv)         # [A, 6, 3, P]
+    camB = torch.einsum("pka,pkil->ailp", ohk, W_p)
+    S = torch.einsum("ailp,bjlp->abij", camA, camB)           # [A, A, 6, 6]
+    S_full = S.permute(0, 2, 1, 3).reshape(n_opt * 6, n_opt * 6)
+    Hcc_full = torch.block_diag(*Hcc.unbind(0))
+
+    # rhs: gc - sum_p W Hpp^-1 gp
+    rhs = gc - torch.einsum("ailp,pl->ai", camA, gp)
+
+    S_red = Hcc_full - S_full + 1e-8 * eye_s
+    # S_red is SPD (damped Schur complement of an SPD system).  A
+    # numerically indefinite edge case gives NaN dc, and the LM candidate
+    # is simply rejected (new_cost < cost is false): cholesky_ex reports
+    # the failure in `info` instead of raising.
+    L, info = torch.linalg.cholesky_ex(S_red)
+    dc = -torch.cholesky_solve(rhs.reshape(-1, 1), L).reshape(n_opt, 6)
+    dc = torch.where(info == 0, dc, torch.full_like(dc, float("nan")))
+    # per-camera trust region: weakly-observed cameras are rank-deficient
+    # and their junk updates ride along with cost-improving steps (the
+    # LM gate only sees the total), so clip each camera's tangent step
+    dc_norm = torch.linalg.norm(dc, dim=1, keepdim=True)
+    dc = dc * torch.clamp(trust_region / torch.clamp(dc_norm, min=1e-9), max=1.0)
+
+    # back-substitute points: dp = -Hpp^-1 (gp + W^T dc), gathered
+    dc_k = dc[cam_p] * cam_is_opt[..., None]                  # [P, K, 6]
+    WT_dc = torch.einsum("pkij,pki->pj", W_p, dc_k)           # [P, 3]
+    dp = -torch.einsum("pij,pj->pi", Hpp_inv, gp + WT_dc)
+    dp = torch.where(pt_w[:, None], dp, torch.zeros_like(dp))
+
+    # candidate update
+    new_opt = se3.pose_retract(poses7[:n_opt], dc)
+    cand_poses = torch.cat([new_opt, poses7[n_opt:]], dim=0)
+    cand_points = points + dp
+    new_cost = _total_cost(cand_poses, cand_points, obs, K, obs_w_valid, huber)
+    accept = new_cost < cost
+    poses7 = torch.where(accept, cand_poses, poses7)
+    points = torch.where(accept, cand_points, points)
+    lam = torch.where(accept, torch.clamp(lam * 0.33, min=1e-9),
+                      torch.clamp(lam * 5.0, max=1e8))
+    cost = torch.where(accept, new_cost, cost)
+    return poses7, points, lam, cost
+
+
+_lm_step = graphs.captured(_lm_iteration, "local_ba")
+
+
 def bundle_adjust(
     problem: BAProblem, K, n_opt: int,
     iters: int = 10, huber: bool = True, chi2_th: float = CHI2_MONO,
@@ -211,24 +322,20 @@ def bundle_adjust(
     Returns (poses7 [C, 7], points [P, 3], obs_chi2 [O]).
     Landmarks are marginalized per-point (Schur); the reduced camera system
     [6*n_opt, 6*n_opt] is solved densely.  The LM steps are a Python loop
-    whose accept/reject is a ``torch.where`` on device.
+    whose accept/reject is a ``torch.where`` on device; each is
+    ``_lm_step``, replayed from a CUDA graph on the card.
     """
     poses7 = problem.poses7
     points = problem.points
     obs = problem.obs
     dev, dt = points.device, points.dtype
     O = obs.uv.shape[0]
-    delta2 = CHI2_MONO
 
     obs_w_valid = obs.valid.to(dt)
-    pt_w = problem.pt_valid
     cam_idx = obs.cam_idx.to(torch.int64)
     obs = obs._replace(cam_idx=cam_idx, pt_idx=obs.pt_idx.to(torch.int64))
     pt_obs = problem.pt_obs.to(torch.int64)
     ar_opt = torch.arange(n_opt, device=dev)
-    eye6 = torch.eye(6, dtype=dt, device=dev)
-    eye3 = torch.eye(3, dtype=dt, device=dev)
-    eye_s = torch.eye(n_opt * 6, dtype=dt, device=dev)
 
     # loop invariants of the step: the per-point observation lists
     po = torch.clamp(pt_obs, 0, O - 1)
@@ -240,95 +347,12 @@ def bundle_adjust(
     opt_cam = (cam_idx < n_opt).to(dt)
     oh_cam_mask = (cam_idx[:, None] == ar_opt[None, :]).to(dt)  # [O, A]
 
-    def total_cost(poses7, points):
-        r, _, _, z = _project_residuals(poses7, points, obs, K)
-        chi2 = torch.sum(r * r, dim=1) * obs.inv_sigma2
-        if huber:
-            chi2 = torch.where(
-                chi2 <= delta2, chi2,
-                2.0 * torch.sqrt(delta2 * torch.clamp(chi2, min=1e-12)) - delta2)
-        return torch.sum(chi2 * obs_w_valid)
-
     lam = torch.tensor(1e-4, dtype=dt, device=dev)
-    cost = total_cost(poses7, points)
+    cost = _total_cost(poses7, points, obs, K, obs_w_valid, huber)
     for _ in range(iters):
-        r, Jc, Jp, z = _project_residuals(poses7, points, obs, K)
-        chi2 = torch.sum(r * r, dim=1) * obs.inv_sigma2
-        w_h = _huber_weight(chi2, delta2) if huber else torch.ones_like(chi2)
-        w = obs.inv_sigma2 * w_h * obs_w_valid
-        wc = w * opt_cam
-
-        # camera blocks: one-hot over the few optimized cameras
-        oh_cam = oh_cam_mask * wc[:, None]                         # [O, A]
-        JcJc = torch.einsum("oki,okj->oij", Jc, Jc)
-        Hcc = torch.einsum("oa,oij->aij", oh_cam, JcJc)
-        Jcr = torch.einsum("oki,ok->oi", Jc, r)
-        gc = torch.einsum("oa,oi->ai", oh_cam, Jcr)
-
-        # point blocks: gather each point's observations via pt_obs
-        w_p = w[po] * po_valid                                     # [P, K]
-        Jp_p = Jp[po]                                              # [P, K, 2, 3]
-        r_p = r[po]
-        Hpp = torch.einsum("pkli,pk,pklj->pij", Jp_p, w_p, Jp_p)
-        gp = torch.einsum("pkli,pk,pkl->pi", Jp_p, w_p, r_p)
-
-        # LM damping: H += lam * diag(H)
-        dcc = torch.clamp(torch.diagonal(Hcc, dim1=1, dim2=2), min=1e-6)
-        Hcc = Hcc + lam * dcc[:, :, None] * eye6[None]
-        dpp = torch.clamp(torch.diagonal(Hpp, dim1=1, dim2=2), min=1e-6)
-        Hpp_d = Hpp + lam * dpp[:, :, None] * eye3[None] + 1e-8 * eye3[None]
-        Hpp_inv = inv3x3(Hpp_d)
-        Hpp_inv = torch.where(pt_w[:, None, None], Hpp_inv, torch.zeros_like(Hpp_inv))
-
-        # W blocks per observation: [O, 6, 3]
-        W = torch.einsum("oki,o,okj->oij", Jc, wc, Jp)
-
-        # Schur assembly over per-point observation lists: per-point
-        # per-camera sums via a small one-hot contraction, then the double sum
-        #     S[a, b] = sum_p (sum_{k->a} WHinv_k)(sum_{m->b} W_m)^T
-        # as one dense contraction over (p, l).
-        W_p = W[po] * po_valid[..., None, None]                   # [P, Kmax, 6, 3]
-        WHinv = torch.einsum("pkij,pjl->pkil", W_p, Hpp_inv)      # [P, Kmax, 6, 3]
-        camA = torch.einsum("pka,pkil->ailp", ohk, WHinv)         # [A, 6, 3, P]
-        camB = torch.einsum("pka,pkil->ailp", ohk, W_p)
-        S = torch.einsum("ailp,bjlp->abij", camA, camB)           # [A, A, 6, 6]
-        S_full = S.permute(0, 2, 1, 3).reshape(n_opt * 6, n_opt * 6)
-        Hcc_full = torch.block_diag(*Hcc.unbind(0))
-
-        # rhs: gc - sum_p W Hpp^-1 gp
-        rhs = gc - torch.einsum("ailp,pl->ai", camA, gp)
-
-        S_red = Hcc_full - S_full + 1e-8 * eye_s
-        # S_red is SPD (damped Schur complement of an SPD system).  A
-        # numerically indefinite edge case gives NaN dc, and the LM candidate
-        # is simply rejected (new_cost < cost is false): cholesky_ex reports
-        # the failure in `info` instead of raising.
-        L, info = torch.linalg.cholesky_ex(S_red)
-        dc = -torch.cholesky_solve(rhs.reshape(-1, 1), L).reshape(n_opt, 6)
-        dc = torch.where(info == 0, dc, torch.full_like(dc, float("nan")))
-        # per-camera trust region: weakly-observed cameras are rank-deficient
-        # and their junk updates ride along with cost-improving steps (the
-        # LM gate only sees the total), so clip each camera's tangent step
-        dc_norm = torch.linalg.norm(dc, dim=1, keepdim=True)
-        dc = dc * torch.clamp(trust_region / torch.clamp(dc_norm, min=1e-9), max=1.0)
-
-        # back-substitute points: dp = -Hpp^-1 (gp + W^T dc), gathered
-        dc_k = dc[cam_p] * cam_is_opt[..., None]                  # [P, K, 6]
-        WT_dc = torch.einsum("pkij,pki->pj", W_p, dc_k)           # [P, 3]
-        dp = -torch.einsum("pij,pj->pi", Hpp_inv, gp + WT_dc)
-        dp = torch.where(pt_w[:, None], dp, torch.zeros_like(dp))
-
-        # candidate update
-        new_opt = se3.pose_retract(poses7[:n_opt], dc)
-        cand_poses = torch.cat([new_opt, poses7[n_opt:]], dim=0)
-        cand_points = points + dp
-        new_cost = total_cost(cand_poses, cand_points)
-        accept = new_cost < cost
-        poses7 = torch.where(accept, cand_poses, poses7)
-        points = torch.where(accept, cand_points, points)
-        lam = torch.where(accept, torch.clamp(lam * 0.33, min=1e-9),
-                          torch.clamp(lam * 5.0, max=1e8))
-        cost = torch.where(accept, new_cost, cost)
+        poses7, points, lam, cost = _lm_step(
+            poses7, points, lam, cost, obs, K, problem.pt_valid, obs_w_valid, po, po_valid,
+            cam_p, cam_is_opt, ohk, opt_cam, oh_cam_mask, n_opt, huber, trust_region)
 
     r, _, _, z = _project_residuals(poses7, points, obs, K)
     chi2 = torch.sum(r * r, dim=1) * obs.inv_sigma2

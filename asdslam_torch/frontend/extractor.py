@@ -19,6 +19,7 @@ import torch
 from asdslam_torch.config import SlamConfig
 from asdslam_torch.geometry import camera as camera_mod
 from asdslam_torch.ops import fast, patches, pyramid
+from asdslam_torch.utils import graphs
 
 
 class FrameFeatures(NamedTuple):
@@ -60,6 +61,9 @@ def make_extractor(cfg: SlamConfig, descriptor_fn, rotate_patches: bool = False)
     rotate_patches: derotate patches by the keypoint angle before the
     descriptor (the ORB path; ASD patches stay upright like the reference's
     computeSIFTDescriptors crop).
+    On a CUDA image the extractor is replayed from a CUDA graph
+    (``utils/graphs.py``, the reference's ``jax.jit``); ``.eager`` is the
+    function itself, which a CPU image runs.
     """
     budgets = level_budgets(cfg)
     scales = cfg.scale_factors
@@ -102,17 +106,19 @@ def make_extractor(cfg: SlamConfig, descriptor_fn, rotate_patches: bool = False)
             desc=desc, valid=valid,
         )
 
-    return extract
+    return graphs.captured(extract, "extract")
 
 
 def with_undistortion(extract_fn, cam):
     """Wrap an extractor to fill uv_und through the camera model
     (Frame.cc:298-328): the radtan inverse of ``uv`` on valid rows, ``uv``
     elsewhere.  ``cam`` (geometry/camera.py) lives on the extractor's device:
-    the wrapper uploads nothing and reads nothing back."""
+    the wrapper uploads nothing and reads nothing back.  Captured as
+    ``make_extractor``'s extractor is (the inner extractor runs inside this
+    graph)."""
     def run(image):
         f = extract_fn(image)
         und = camera_mod.undistort_points(cam, f.uv)
         return f._replace(uv_und=torch.where(f.valid[:, None], und, f.uv))
 
-    return run
+    return graphs.captured(run, "extract_undistorted")

@@ -36,6 +36,7 @@ from asdslam_torch.config import SlamConfig
 from asdslam_torch.frontend import visibility
 from asdslam_torch.geometry import se3
 from asdslam_torch.ops import match
+from asdslam_torch.utils import graphs
 
 
 class GeomBlock(NamedTuple):
@@ -94,7 +95,10 @@ def make_track_step(cfg: SlamConfig, K, extract_fn, device="cuda"):
 
     extract_fn: image [H, W] float32 -> FrameFeatures (``make_extractor``).
     K: [3, 3] intrinsics.  The step runs on ``device``; its inputs are moved
-    there (the image as uint8, the reference's upload)."""
+    there (the image as uint8, the reference's upload).  On a CUDA device the
+    step is replayed from a CUDA graph (``utils/graphs.py``, the reference's
+    ``jax.jit``), the eager function kept as ``.eager``; on the CPU it is the
+    eager function."""
     K = torch.as_tensor(K, dtype=torch.float32).to(device)
     scale_factors = torch.tensor(cfg.scale_factors, dtype=torch.float32, device=device)
     inv_sigma2 = torch.tensor(cfg.inv_level_sigma2, dtype=torch.float32, device=device)
@@ -219,4 +223,20 @@ def make_track_step(cfg: SlamConfig, K, extract_fn, device="cuda"):
                           next_geom=next_geom, crow=crow)
         return feat, res
 
-    return track_step
+    if torch.device(device).type != "cuda":
+        return track_step
+    graph_step = graphs.captured(track_step, "track_step")
+
+    def captured_step(img, prev_pose7, velocity7, prev_feat, prev_pts, cand_pts,
+                      prev_crow=None):
+        """``track_step`` replayed from a CUDA graph: the image is uploaded
+        first (a graph takes device tensors), and a missing ``prev_crow`` is
+        all -1 (no row bound: the same result), so both give one graph."""
+        if prev_crow is None:
+            prev_crow = torch.full((N,), -1, dtype=torch.int32, device=device)
+        return graph_step(torch.as_tensor(img).to(device), prev_pose7, velocity7, prev_feat,
+                          prev_pts, cand_pts, prev_crow)
+
+    captured_step.eager = track_step
+    captured_step.graphs = graph_step
+    return captured_step

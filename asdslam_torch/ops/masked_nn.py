@@ -16,9 +16,11 @@ so the culling can be checked without a card.
 
 ``masked_nn`` launches the kernel for CUDA tensors and counts the call in
 ``masked_nn.launches`` (and, inside a ``call_site`` block of the launching
-thread, in ``masked_nn.by_site``); for CPU tensors it runs
-``masked_nn_plain``.  It never falls back from the kernel: a tensor it cannot
-take, or a failed launch, raises.
+thread, in ``masked_nn.by_site``); a launch captured in a CUDA graph
+(``utils/graphs.py``) is counted at each replay, under the replaying
+thread's label.  For CPU tensors it runs ``masked_nn_plain``.  It never
+falls back from the kernel: a tensor it cannot take, or a failed launch,
+raises.
 
 The wrapper may be called from several threads at once (the tracker and the
 mapping worker): the scratch table and the counters are changed under one
@@ -37,6 +39,7 @@ from typing import NamedTuple
 import torch
 
 from asdslam_torch import kernels
+from asdslam_torch.utils import graphs
 
 BIG = 1e30
 DESC_DIMS = (128, 256)  # the kernel's compiled descriptor widths: ASD, ORB
@@ -326,7 +329,12 @@ def _launch(args, level_window, scratch=None):
     # .cuda_stream, without building a Stream object)
     stream = torch._C._cuda_getCurrentRawStream(index)
     if scratch is None:
-        scratch = _scratch_buffer(dev, stream, n, m, d)
+        # a graph keeps the raw pointer of what it captured: during a
+        # capture the scratch is the capture's own, made in the graph's
+        # pool, never one of the table's, which the table may drop
+        scratch = (torch.empty(_layout(n, m, d)[0], dtype=torch.uint8, device=dev)
+                   if dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
+                   else _scratch_buffer(dev, stream, n, m, d))
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
     idx, best, second = out[0].view(torch.int32), out[1], out[2]
     base = out.data_ptr()
@@ -364,12 +372,19 @@ def masked_nn(desc_a, desc_b, valid_a, valid_b, uv_a=None, uv_b=None, rad2=None,
     if desc_a.device.type != "cuda":
         raise ValueError(f"masked_nn: no kernel for device {desc_a.device}")
     out = _launch(args, level_window)[0]
+    graphs.host_effect(_count)
+    return out
+
+
+def _count():
+    """One launch in ``masked_nn.launches`` (and in ``by_site`` under the
+    running thread's call-site label).  Inside a graph capture it runs at
+    each replay instead (``graphs.host_effect``)."""
     site = getattr(_tls, "site", None)
     with _lock:
         _COUNTED.launches += 1
         if site is not None:
             _COUNTED.by_site[site] = _COUNTED.by_site.get(site, 0) + 1
-    return out
 
 
 masked_nn.launches = 0

@@ -185,7 +185,25 @@ Phases, each of which raises on failure (exit code != 0):
    b. the host synchronisations of optimize_pose_graph and
       global_bundle_adjust (set_sync_debug_mode("warn")) at 1 and 3 LM
       iterations, which must be equal: the setup reads index tables back,
-      the loops nothing.
+      the loops nothing;
+14. the CUDA-graph capture (asdslam_torch/utils/graphs.py, the reference's
+   jax.jit), each site against its ``.eager`` on the same inputs:
+   a. phase 3's step over 8 chained frames captured and eager: every output
+      bitwise equal frame by frame, masked_nn's 3 launches a frame counted
+      through the replays; ms a frame by host clock and CUDA events for
+      both, the graph's pool size, and (with the profiler's readings, last)
+      the device's idle share, K1's device time inside the graph and the
+      largest kernels; its extractor, and the same through EuRoC's lens
+      (with_undistortion), on 3 frames twice: bitwise equal, ms of both;
+   b. frame k + 1 queued before frame k is fetched: every fetched frame
+      equals the eager chain's (the returned outputs are clones);
+   c. the essential graph, global BA and the largest local BA on their
+      arguments recorded in phase 6's first run, and bench_torch.py's local
+      BA (64 cameras, 4096 points): captured bitwise equal to eager, host ms
+      of both (the captured first call with its warm-up and capture apart);
+   d. phase 5's synchronous System over its 20 frames with every site
+      eager: the frame trajectory bitwise the captured run's; frames/s of
+      both (phase 6's dispatch check ran on the captured step).
 
 Prints a `kernels` JSON line before the last line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -193,11 +211,13 @@ Imports nothing of JAX or of the JAX package.
 """
 
 import contextlib
+import gc
 import io
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -556,7 +576,9 @@ def k1_device_ms(args, reps=20):
 
 def record_searches(step, frames_u8, state, cand):
     """The masked_nn arguments of both searches of one chained frame (the
-    wrapper is replaced for that frame only)."""
+    wrapper is replaced for that frame only), from the step's ``.eager``: a
+    replayed graph calls no Python, and a capture's arguments hold nothing
+    yet (phase 14 holds the two bit for bit)."""
     from asdslam_torch.ops import masked_nn as k1
 
     calls, real = [], k1.masked_nn
@@ -567,7 +589,7 @@ def record_searches(step, frames_u8, state, cand):
 
     k1.masked_nn = recorder
     try:
-        run_chain(step, frames_u8, state, cand, 1, 1)
+        run_chain(getattr(step, "eager", step), frames_u8, state, cand, 1, 1)
     finally:
         k1.masked_nn = real
     if len(calls) != 3:
@@ -655,13 +677,18 @@ def build_tracking(cfg, device, descriptor_fn=None, rotate_patches=False):
 
 
 def run_chain(step, frames_u8, state, cand, first, count):
+    return [res for _, res in chain_outputs(step, frames_u8, state, cand, first, count)]
+
+
+def chain_outputs(step, frames_u8, state, cand, first, count):
+    """(feat, TrackResult) of each of ``count`` chained frames from ``first``."""
     feat, geom, pose, vel, crow = (state[k] for k in ("feat", "geom", "pose", "vel", "crow"))
-    results = []
+    out = []
     for i in range(first, first + count):
         feat, res = step(frames_u8[i], pose, vel, feat, geom, cand, crow)
         geom, pose, vel, crow = res.next_geom, res.pose, res.velocity, res.crow
-        results.append(res)
-    return results
+        out.append((feat, res))
+    return out
 
 
 def frame_latencies(step, frames_u8, state, cand, passes):
@@ -715,10 +742,11 @@ def layer_times(cfg, K, extract, frames_u8, state, cand, device):
 
 
 def device_busy(step, frames_u8, state, cand):
-    """(device kernel time, wall time) in ms over 3 chained frames, from
-    torch.profiler with CUDA activity only (tracing the host's calls too
-    slows the traced frames and takes a minute to summarise): the sum of
-    device self time over all events."""
+    """(device kernel time, wall time, {K1 kernel: device ms a frame}, the
+    five largest kernels as [(name, device ms a frame)]) in ms over 3
+    chained frames, from torch.profiler with CUDA activity only (tracing the
+    host's calls too slows the traced frames and takes a minute to
+    summarise): the sum of device self time over all events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -733,7 +761,10 @@ def device_busy(step, frames_u8, state, cand):
     attr = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
             else "self_cuda_time_total")
     busy = sum(getattr(e, attr) for e in events) / 1e3
-    return busy, wall
+    k1_ms = {name: sum(getattr(e, attr) for e in events if name in e.key) / 1e3 / 3
+             for name in ("order_kernel", "gather_kernel", "search_kernel")}
+    top = sorted(((e.key, getattr(e, attr) / 1e3 / 3) for e in events), key=lambda x: -x[1])[:5]
+    return busy, wall, k1_ms, top
 
 
 # --------------------------------------------------------------------------- #
@@ -1020,10 +1051,12 @@ def phase6(cfg, weights, device, card, errs, k1_cases):
     between them in the same process, the synchronous mode; the checks; the
     dispatch check; K1 at the loop closer's call sites.  Adds those calls to
     ``k1_cases`` / ``errs`` and returns the numbers for the JSON line and the
-    first run's System (phase 11 reads its map)."""
+    first run's System (phase 11 reads its map) and the LM loops' arguments
+    recorded in that run (phase 14c)."""
     frames_u8, poses_gt = render_loop(cfg, device)
     sync_cfg = cfg.replace(pipelined_tracking=False, async_mapping=False)
-    first = run_default(cfg, frames_u8, weights, device, record=True)
+    with record_lm_calls() as lm_calls:
+        first = run_default(cfg, frames_u8, weights, device, record=True)
     sync = run_default(sync_cfg, frames_u8, weights, device)
     again = run_default(cfg, frames_u8, weights, device)
     ate, path, bar = check_default(first, again, poses_gt)
@@ -1083,7 +1116,7 @@ def phase6(cfg, weights, device, card, errs, k1_cases):
         err, pairs_in, share = check_k1(case, args)
         errs.append(err)
         k1_cases[case] = (args, pairs_in, share)
-    return out, first["system"]
+    return out, first["system"], lm_calls
 
 
 # --------------------------------------------------------------------------- #
@@ -1516,16 +1549,20 @@ def run_entry(main_fn, argv):
 @contextlib.contextmanager
 def local_map_search(cfg):
     """Keep the arguments of one local-map search of the fused step made
-    inside the block (the 20th, or the last before it) in the yielded dict
-    under "args", filled as the wrapper fills them."""
+    inside the block (the 20th run in Python, or the last before it) in the
+    yielded dict under "args", filled as the wrapper fills them.  The step
+    is captured: its warm-up runs in Python with real inputs, its capture
+    runs in Python on buffers that hold nothing yet (skipped), its replays
+    not at all, so the kept search is the warm-up's."""
     import torch
     from asdslam_torch.ops import masked_nn as k1
 
     real_nn, seen, kept = k1.masked_nn, [0], {}
 
     def recorder(*args):
-        if getattr(k1._tls, "site", None) == "step" and \
-                args[0].shape[0] == cfg.local_ba_max_points and seen[0] < 20:
+        if getattr(k1._tls, "site", None) == "step" and seen[0] < 20 \
+                and args[0].shape[0] == cfg.local_ba_max_points \
+                and not torch.cuda.is_current_stream_capturing():
             seen[0] += 1
             kept["args"] = tuple(a.clone() if isinstance(a, torch.Tensor) else a
                                  for a in k1_full_args(args))
@@ -2434,7 +2471,8 @@ def phase11(cfg, device, card, loop_system):
             for n in (1, SEQ_SHARDS):
                 mesh = dist.make_mesh(n, device)
                 step = multi_seq.make_dp_track_step(cfg, K, extract, mesh)
-                torch.cuda.synchronize()  # phase 3 warmed the step at these shapes
+                run_batched(step)  # each shard's step warms and captures its graph
+                torch.cuda.synchronize()
                 if n == SEQ_SHARDS:
                     k1.masked_nn.launches = 0
                 t1 = time.perf_counter()
@@ -3040,6 +3078,307 @@ def tree_leaves(x):
     return [x]
 
 
+# --------------------------------------------------------------------------- #
+# Phase 14: the CUDA-graph capture (asdslam_torch/utils/graphs.py)
+# --------------------------------------------------------------------------- #
+def same_bits(a, b):
+    """Tensors (or constants) equal bit for bit: shape, dtype and bytes
+    (NaN equals NaN of the same payload, -0.0 differs from 0.0)."""
+    import torch
+
+    if not isinstance(a, torch.Tensor):
+        return a == b
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    flat = [t.detach().reshape(-1).contiguous().cpu() for t in (a, b)]
+    return torch.equal(flat[0].view(torch.uint8), flat[1].view(torch.uint8))
+
+
+def tree_same_bits(a, b):
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(same_bits(x, y) for x, y in zip(la, lb))
+
+
+@contextlib.contextmanager
+def eager_sites():
+    """Inside the block the capture sites run eagerly: graphs.captured
+    returns its function (the extractors and fused steps built inside the
+    block), and the module-level captured LM iterations are their
+    ``.eager``.  A patch of this script only: the port has no such switch."""
+    from asdslam_torch.backend import ba, global_ba, pose_graph
+    from asdslam_torch.utils import graphs
+
+    saved = [(graphs, "captured", graphs.captured)]
+    saved += [(m, "_lm_step", m._lm_step) for m in (ba, global_ba, pose_graph)]
+    graphs.captured = lambda fn, name: fn
+    for m in (ba, global_ba, pose_graph):
+        m._lm_step = m._lm_step.eager
+    try:
+        yield
+    finally:
+        for owner, name, value in saved:
+            setattr(owner, name, value)
+
+
+def local_ba_problem(cfg, device, points=4096, obs=16384):
+    """bench_torch.py's local-BA problem (seed 9): local_ba_max_kfs +
+    local_ba_max_fixed cameras, ``points`` points, ``obs`` observations.
+    Returns (BAProblem, K, n_opt)."""
+    import torch
+    from asdslam_torch.backend import ba
+
+    K = torch.tensor([[cfg.fx, 0, cfg.cx], [0, cfg.fy, cfg.cy], [0, 0, 1.0]])
+    C = cfg.local_ba_max_kfs + cfg.local_ba_max_fixed
+    gen = torch.Generator().manual_seed(9)
+    pts = torch.rand(points, 3, generator=gen) * 10.0 - 5.0 + torch.tensor([0.0, 0.0, 10.0])
+    poses7 = torch.tensor([1.0, 0, 0, 0, 0, 0, 0]).repeat(C, 1)
+    poses7[:, 6] = torch.arange(C) * 0.1
+    cam_idx = torch.randint(0, C, (obs,), generator=gen)
+    pt_idx = torch.randint(0, points, (obs,), generator=gen)
+    uv = torch.stack([K[0, 0] * pts[pt_idx, 0] / pts[pt_idx, 2] + K[0, 2],
+                      K[1, 1] * pts[pt_idx, 1] / pts[pt_idx, 2] + K[1, 2]], 1)
+    o = ba.Obs(cam_idx=cam_idx.to(device), pt_idx=pt_idx.to(device), uv=uv.to(device),
+               inv_sigma2=torch.ones(obs, device=device),
+               valid=torch.ones(obs, dtype=torch.bool, device=device))
+    pt_obs = ba.build_pt_obs(pt_idx.numpy(), np.ones(obs, bool), points, 16)
+    prob = ba.BAProblem(poses7=poses7.to(device), points=pts.to(device),
+                        pt_valid=torch.ones(points, dtype=torch.bool, device=device),
+                        obs=o, pt_obs=torch.as_tensor(pt_obs).to(device))
+    return prob, K.to(device), cfg.local_ba_max_kfs
+
+
+def check_chain(step, frames_u8, state, cand, count):
+    """The captured step over ``count`` chained frames against its
+    ``.eager``, frame by frame, bit for bit in every output (features and
+    TrackResult), with K1 launched 3 times a frame (replays counted).
+    Returns (the eager chain's outputs, the launches counted)."""
+    import torch
+    from asdslam_torch.ops import masked_nn as k1
+
+    eager = chain_outputs(step.eager, frames_u8, state, cand, 1, count)
+    torch.cuda.synchronize()
+    k1.masked_nn.launches = 0
+    replayed = chain_outputs(step, frames_u8, state, cand, 1, count)
+    torch.cuda.synchronize()
+    if k1.masked_nn.launches != 3 * count:
+        raise AssertionError(f"14a: masked_nn counted {k1.masked_nn.launches} launches in "
+                             f"{count} captured frames, not {3 * count}")
+    for i, (a, b) in enumerate(zip(replayed, eager)):
+        if not tree_same_bits(a, b):
+            bad = [n for n, (x, y) in enumerate(zip(tree_leaves(a), tree_leaves(b)))
+                   if not same_bits(x, y)]
+            raise AssertionError(f"14a: frame {i + 1}: the captured step differs from the eager "
+                                 f"one in output leaves {bad}")
+    return eager, k1.masked_nn.launches
+
+
+def check_extractors(cfg, extract, frames_u8, device):
+    """The captured extractor, and the same wrapped by with_undistortion
+    through EuRoC's lens, against their eager functions (the lens wrapper
+    over the eager extractor) on 3 corridor frames twice over (warm-up,
+    capture, replays), bit for bit.  Returns {name: (eager ms, captured
+    ms)} by CUDA events."""
+    import torch
+    from asdslam_torch.frontend.extractor import with_undistortion
+    from asdslam_torch.geometry import camera
+
+    dist = [float(x) for x in EUROC_CAM.split(",")[4:]]
+    cam = camera.Camera.create(cfg.fx, cfg.fy, cfg.cx, cfg.cy, *dist, device=device)
+    with eager_sites():
+        lens_eager = with_undistortion(extract.eager, cam)
+    images = [f.to(device).to(torch.float32) * (1.0 / 255.0) for f in frames_u8[1:4]]
+    out = {}
+    for name, ex, eager in (("extract", extract, extract.eager),
+                            ("extract_undistorted", with_undistortion(extract, cam), lens_eager)):
+        for _ in range(2):
+            for i, img in enumerate(images):
+                if not tree_same_bits(ex(img), eager(img)):
+                    raise AssertionError(f"14a: the captured {name} differs from the eager one "
+                                         f"on frame {i + 1}")
+        out[name] = (time_ms(lambda: eager(images[0]), 10), time_ms(lambda: ex(images[0]), 10))
+    return out
+
+
+def pipelined_hazard(step, frames_u8, state, cand, eager):
+    """14b: frame k + 1 is queued (its inputs copied into the graph's static
+    buffers, the graph replayed) before frame k's result is fetched, as
+    Tracker._process_pipelined does; each fetched frame must equal the eager
+    chain's.  Returns the frames compared."""
+    feat, geom, pose, vel, crow = (state[k] for k in ("feat", "geom", "pose", "vel", "crow"))
+    pend, fetched = None, []
+    for i in range(1, len(eager) + 1):
+        feat, res = step(frames_u8[i], pose, vel, feat, geom, cand, crow)
+        if pend is not None:
+            fetched.append(tuple(t.cpu() for t in tree_leaves(pend)))
+        pend = (feat, res)
+        geom, pose, vel, crow = res.next_geom, res.pose, res.velocity, res.crow
+    fetched.append(tuple(t.cpu() for t in tree_leaves(pend)))
+    for k, (got, want) in enumerate(zip(fetched, eager)):
+        if not tree_same_bits(got, tuple(tree_leaves(want))):
+            raise AssertionError(f"14b: frame {k + 1} fetched after frame {k + 2} was queued "
+                                 "differs from the eager chain's")
+    return len(fetched)
+
+
+def chain_ms(step, frames_u8, state, cand, count=N_CHAINED):
+    """(host ms, CUDA-event ms) a frame over ``count`` chained frames,
+    synchronised once at the end, after a warm chain of two."""
+    import torch
+
+    chain_outputs(step, frames_u8, state, cand, 1, 2)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    chain_outputs(step, frames_u8, state, cand, 1, count)
+    end.record()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / count, start.elapsed_time(end) / count
+
+
+def timed_call(fn):
+    """(fn(), host ms until the card is done with it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def check_lm_call(fn, args, kwargs):
+    """An LM loop on recorded inputs: eagerly (``eager_sites``), then
+    captured twice (the first call on a new key warms one iteration and
+    captures the next; the second replays them all), bit for bit equal.
+    Returns the host ms of the three calls."""
+    with eager_sites():
+        want, eager_ms = timed_call(lambda: fn(*args, **kwargs))
+    first, first_ms = timed_call(lambda: fn(*args, **kwargs))
+    again, again_ms = timed_call(lambda: fn(*args, **kwargs))
+    for name, got in (("first captured call", first), ("second captured call", again)):
+        if not tree_same_bits(got, want):
+            raise AssertionError(f"14c: {getattr(fn, '__name__', fn)}'s {name} differs from "
+                                 "the eager run")
+    return dict(eager_ms=eager_ms, captured_first_ms=first_ms, captured_ms=again_ms)
+
+
+@contextlib.contextmanager
+def record_lm_calls():
+    """Keep the arguments (cloned at call time) of the first essential
+    graph, the first global BA and the local BA call with the most
+    optimized cameras made inside the block, from any thread: the yielded
+    dict maps each function's name to (function, args, kwargs)."""
+    import torch
+    from asdslam_torch.backend import ba, global_ba, pose_graph
+
+    kept, lock = {}, threading.Lock()
+
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*map(clone, x))
+        return x
+
+    def recorder(owner, name):
+        real = getattr(owner, name)
+
+        def wrapper(*a, **kw):
+            size = kw.get("n_opt", 0)
+            with lock:
+                keep = name not in kept or (name == "bundle_adjust" and size > kept[name][0])
+                if keep:
+                    kept[name] = (size, real, tuple(map(clone, a)),
+                                  {k: clone(v) for k, v in kw.items()})
+            return real(*a, **kw)
+        return real, wrapper
+
+    patched = [(m, n) for m, n in ((pose_graph, "optimize_pose_graph"),
+                                   (global_ba, "global_bundle_adjust"),
+                                   (ba, "bundle_adjust"))]
+    reals = []
+    for owner, name in patched:
+        real, wrapper = recorder(owner, name)
+        reals.append((owner, name, real))
+        setattr(owner, name, wrapper)
+    out = {}
+    try:
+        yield out
+    finally:
+        for owner, name, real in reals:
+            setattr(owner, name, real)
+        out.update({name: v[1:] for name, v in kept.items()})
+
+
+def phase14(cfg, step, extract, frames_u8, state, cand, lm_calls, captured_run, weights,
+            device, card):
+    """14a-14d (module docstring); ``extract`` is the step's extractor,
+    ``lm_calls`` phase 6's record_lm_calls, ``captured_run`` phase 5's
+    second run.  Returns the numbers for the
+    JSON line; the profiler's readings come later (14a's idle share)."""
+    import torch
+    from asdslam_torch.backend import ba
+
+    out = {}
+    # ---- 14a: the fused step, captured against eager ------------------------ #
+    eager, launches = check_chain(step, frames_u8, state, cand, N_CHAINED)
+    timings = {}
+    for name, fn in (("eager", step.eager), ("captured", step), ("captured_again", step),
+                     ("eager_again", step.eager)):
+        timings[name] = chain_ms(fn, frames_u8, state, cand)
+    pools = step.graphs.stats()
+    extractors = check_extractors(cfg, extract, frames_u8, device)
+    log("14a the extractors captured against .eager on 3 frames, twice: bitwise equal; ms a "
+        "call (CUDA events, eager / captured): "
+        + ", ".join(f"{k} {e:.3f} / {c:.3f}" for k, (e, c) in extractors.items()) + f" [{card}]")
+    out["14a"] = dict(frames=N_CHAINED, launches=launches, extractor_ms=extractors,
+                      host_ms_a_frame={k: v[0] for k, v in timings.items()},
+                      event_ms_a_frame={k: v[1] for k, v in timings.items()}, graphs=pools)
+    log(f"14a the fused step over {N_CHAINED} chained frames, captured against .eager: every "
+        f"output bitwise equal frame by frame, masked_nn 3 launches a frame through replays; ms "
+        f"a frame (host clock / CUDA events, eager, captured, captured, eager): "
+        + ", ".join(f"{k} {h:.2f} / {e:.2f}" for k, (h, e) in timings.items())
+        + f"; the step's graphs (replays, pool bytes, capture ms): "
+        + ", ".join(f"({g['replays']}, {g['pool_bytes']}, {g['capture_ms']:.0f})" for g in pools)
+        + f" [{card}]")
+    # ---- 14b: frame k + 1 queued before frame k is fetched ----------------- #
+    n = pipelined_hazard(step, frames_u8, state, cand, eager)
+    out["14b"] = dict(frames=n)
+    log(f"14b {n} frames each fetched after the next was queued equal the eager chain's")
+    # ---- 14c: the three LM loops ------------------------------------------- #
+    prob, K, n_opt = local_ba_problem(cfg, device)
+    calls = dict(lm_calls)
+    calls["bench local BA 64 cameras, 4096 points"] = (
+        ba.bundle_adjust, (prob, K), dict(n_opt=n_opt, iters=15))
+    lm = {}
+    for name, (fn, args, kwargs) in calls.items():
+        lm[name] = check_lm_call(fn, args, kwargs)
+        ms = lm[name]
+        log(f"14c {name}: captured bitwise equal to eager; host ms eager {ms['eager_ms']:.1f}, "
+            f"captured first call (warm-up + capture) {ms['captured_first_ms']:.1f}, "
+            f"captured {ms['captured_ms']:.1f} [{card}]")
+    if set(lm_calls) != {"optimize_pose_graph", "global_bundle_adjust", "bundle_adjust"}:
+        raise AssertionError(f"14c: phase 6 recorded {sorted(lm_calls)}")
+    out["14c"] = lm
+    # ---- 14d: a whole System with and without the capture ------------------ #
+    sync_cfg = cfg.replace(pipelined_tracking=False, async_mapping=False)
+    with eager_sites():
+        eager_run = run_system(sync_cfg, frames_u8, weights, device)
+    ta, tb = captured_run["system"].frame_trajectory(), eager_run["system"].frame_trajectory()
+    if len(ta) != len(tb) or any(fa != fb or pa.tobytes() != pb.tobytes()
+                                 for (fa, pa), (fb, pb) in zip(ta, tb)):
+        raise AssertionError("14d: the captured System's trajectory differs from the eager one's")
+    fps = {name: len(r["ms"]) / (r["ms"].sum() / 1e3)
+           for name, r in (("captured", captured_run), ("eager", eager_run))}
+    out["14d"] = dict(frames=N_SYSTEM, fps=fps)
+    log(f"14d the synchronous System over {N_SYSTEM} frames, captured and with every site eager: "
+        f"frame trajectories bitwise equal; frames/s captured {fps['captured']:.2f}, eager "
+        f"{fps['eager']:.2f} [{card}]")
+    torch.cuda.synchronize()
+    return out
+
+
 def main():
     import torch
 
@@ -3056,7 +3395,12 @@ def main():
     t_main = time.perf_counter()
 
     def stamp(phase):
-        log(f"-- {phase} done at {time.perf_counter() - t_main:.0f} s")
+        # the Systems a phase dropped hold CUDA graphs (each tracker's step
+        # graph has a pool of ~1.8 GB): collect them and free their pools
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"-- {phase} done at {time.perf_counter() - t_main:.0f} s, "
+            f"{torch.cuda.memory_reserved() / 2**30:.1f} GiB reserved")
 
     # ---- 1. build ---------------------------------------------------------- #
     t0 = time.perf_counter()
@@ -3194,7 +3538,7 @@ def main():
 
     stamp("phase 5")
     # ---- 6. the default configuration -------------------------------------- #
-    default, loop_system = phase6(cfg, weights, device, card, errs, k1_cases)
+    default, loop_system, lm_calls = phase6(cfg, weights, device, card, errs, k1_cases)
     stamp("phase 6")
     # ---- 7. localization mode, persistence, EuRoC's lens ------------------- #
     localization = phase7(cfg, second["system"], frames_u8, weights, device, card, errs,
@@ -3233,6 +3577,12 @@ def main():
     # ---- 13. singular inputs, the LM loops' host synchronisations ---------- #
     faults = phase13(device, card)
     stamp("phase 13")
+    # ---- 14. the CUDA-graph capture, against the eager sites --------------- #
+    t0 = time.perf_counter()
+    capture = phase14(cfg, step, extract, frames_u8, state, cand, lm_calls, second, weights,
+                      device, card)
+    capture["seconds"] = time.perf_counter() - t0
+    stamp("phase 14")
 
     # K1 by shape.  Everything that reads a clock comes before the first use
     # of torch.profiler: once it has traced, later launches of the process
@@ -3253,9 +3603,21 @@ def main():
                            gated_in_pairs=pairs_in, live_tile_share=share,
                            host_enqueue_ms=k1_host_ms(args)))
     stamp("K1 timings")
-    busy, wall = device_busy(step, frames_u8, state, cand)
-    log(f"profiler over 3 chained frames: device busy {busy:.1f} ms of {wall:.1f} ms wall "
-        f"(idle share {1 - busy / wall:.3f}) [{card}]")
+    busy, wall, k1_step_ms, top = device_busy(step, frames_u8, state, cand)
+    log(f"profiler over 3 chained frames of the captured step: device busy {busy:.1f} ms of "
+        f"{wall:.1f} ms wall (idle share {1 - busy / wall:.3f}); K1's kernels inside the graph, "
+        "device ms a frame: " + ", ".join(f"{k} {v:.4f}" for k, v in k1_step_ms.items())
+        + "; largest kernels, device ms a frame: "
+        + ", ".join(f"{k[:60]} {v:.3f}" for k, v in top) + f" [{card}]")
+    e_busy, e_wall, e_k1, _ = device_busy(step.eager, frames_u8, state, cand)
+    log(f"profiler over 3 chained frames of the eager step: device busy {e_busy:.1f} ms of "
+        f"{e_wall:.1f} ms wall (idle share {1 - e_busy / e_wall:.3f}); K1's kernels, device ms a "
+        "frame: " + ", ".join(f"{k} {v:.4f}" for k, v in e_k1.items()) + f" [{card}]")
+    capture["14a"].update(busy_ms=busy, wall_ms=wall, idle_share=1 - busy / wall,
+                          k1_device_ms_a_frame=k1_step_ms, top_kernels_ms=top,
+                          eager_busy_ms=e_busy,
+                          eager_wall_ms=e_wall, eager_idle_share=1 - e_busy / e_wall,
+                          eager_k1_device_ms_a_frame=e_k1)
     for sh in shapes:
         sh["device_ms"] = k1_device_ms(k1_cases[sh["shape"]][0])
         log(f"masked_nn {sh['shape']}: kernel {sh['ms']:.4f} ms (whole wrapper call), plain "
@@ -3287,7 +3649,7 @@ def main():
         "replaces": "asdslam_tpu/ops/pallas_match.py:42",
         "launches": (launches + launches_system + default["launches"] + launches_loc
                      + launches_entry + launches_train + launches_orb + launches_multi
-                     + launches_kitti),
+                     + launches_kitti + capture["14a"]["launches"]),
         "max_abs_err": max(errs),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
@@ -3316,9 +3678,11 @@ def main():
                              "orb_chained_step": launches_orb,
                              "multi_sequence": launches_multi,
                              "kitti_eval": launches_kitti,
-                             "kitti_eval_by_site": tools["12b"]["by_site"]},
+                             "kitti_eval_by_site": tools["12b"]["by_site"],
+                             "captured_chain": capture["14a"]["launches"]},
         "default_config": default, "localization": localization, "entry_points": entry,
         "training": training, "orb_path": orb_path, "phase12": tools, "phase13": faults,
+        "phase14": capture,
         "system": {"frames": N_SYSTEM, "fps": system_fps,
                    "frame_ms_median": float(np.median(steady)),
                    "keyframe_frame_ms": [float(x) for x in frame_ms[is_kf]],
@@ -3330,7 +3694,68 @@ def main():
     return 0
 
 
+def phase14_alone():
+    """``python3 chip_smoke.py --phase14``: phase 14 without the other
+    phases, for a change to a capture site (~3 min).  Its LM arguments are
+    the essential graph and global BA of phase 13's problems and the largest
+    local BA of phase 5's first run (recorded there), with bench_torch.py's
+    local BA; its profiler readings of the step follow.  Prints one JSON
+    line; exit code 0 when every check passed."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from asdslam_torch import kernels
+    from asdslam_torch.backend import ba, global_ba, pose_graph
+    from asdslam_torch.config import SlamConfig
+    from asdslam_torch.frontend import track_step as ts
+    from asdslam_torch.models.asdnet import load_weights
+
+    device, card = "cuda", card_line()
+    kernels.build()
+    log(f"card: {card}")
+    cfg = SlamConfig()
+    K, extract, frames_u8, poses, cand, state = build_tracking(cfg, device)
+    step = ts.make_track_step(cfg, K, extract, device=device)
+    weights = load_weights(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                        "asdnet_weights.pkl"))
+    sync_cfg = cfg.replace(pipelined_tracking=False, async_mapping=False)
+    with record_lm_calls() as recorded:
+        run_system(sync_cfg, frames_u8, weights, device)
+    captured_run = run_system(sync_cfg, frames_u8, weights, device)
+
+    def dev(x):
+        return torch.as_tensor(x).to(device)
+
+    poses8, i, j, meas, w, fixed = map(dev, pose_graph_problem_np())
+    edges = pose_graph.PoseGraphEdges(i=i, j=j, meas=meas, weight=w,
+                                      valid=torch.ones(len(w), dtype=torch.bool, device=device))
+    poses7, X, pt_valid, *obs, n_opt = gba_problem_np()
+    lm_calls = {
+        "optimize_pose_graph": (pose_graph.optimize_pose_graph, (poses8, edges, fixed),
+                                dict(iters=15)),
+        "global_bundle_adjust": (global_ba.global_bundle_adjust,
+                                 (dev(poses7), dev(X), dev(pt_valid), ba.Obs(*map(dev, obs)),
+                                  dev(SING_K)), dict(n_opt=n_opt, iters=10, cg_iters=40)),
+        "bundle_adjust": recorded["bundle_adjust"]}
+    out = phase14(cfg, step, extract, frames_u8, state, cand, lm_calls, captured_run, weights,
+                  device, card)
+    busy, wall, k1_ms, top = device_busy(step, frames_u8, state, cand)
+    e_busy, e_wall, e_k1, _ = device_busy(step.eager, frames_u8, state, cand)
+    out["14a"].update(idle_share=1 - busy / wall, k1_device_ms_a_frame=k1_ms,
+                      top_kernels_ms=top, eager_idle_share=1 - e_busy / e_wall,
+                      eager_k1_device_ms_a_frame=e_k1)
+    log(f"14a idle share captured {1 - busy / wall:.3f}, eager {1 - e_busy / e_wall:.3f}; K1's "
+        f"device ms a frame inside the graph {k1_ms}; largest kernels {top} [{card}]")
+    log(json.dumps({"phase14": out, "card": card}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multihost-child"]:
         sys.exit(multihost_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--phase14"]:
+        sys.exit(phase14_alone())
     sys.exit(main())

@@ -48,6 +48,8 @@ MODULES = (
     "parallel/dist.py", "parallel/multi_seq.py",
     # the measurement twins' peak rates and roofline rows
     "utils/roofline.py",
+    # the CUDA-graph capture of the hot paths (the reference's jax.jit)
+    "utils/graphs.py",
 )
 
 
