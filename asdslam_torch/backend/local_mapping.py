@@ -3,6 +3,11 @@
 Port of ``asdslam_tpu/backend/local_mapping.py``: numpy bookkeeping on the
 store around three device calls (triangulate_neighbors, fuse_pairs,
 bundle_adjust), each fetched once, then the loop closer when there is one.
+The first two are module-level ``graphs.captured`` callables; on the card
+they take the reference's fixed shapes (``triangulation_neighbors`` slots,
+``FUSE_PAIRS`` pairs, the point axis bucketed pow2 from 256), so a
+keyframe replays one of at most five graphs; on the CPU only the live
+slots are evaluated.
 
 Mirrors LocalMapping::DoMapping (src/vslam/src/LocalMapping.cc:59-113), run
 after keyframe insertion: inline in synchronous mode, as the reference does
@@ -30,7 +35,29 @@ import torch
 from asdslam_torch.backend import ba, mapping_kernels
 from asdslam_torch.config import SlamConfig
 from asdslam_torch.mapping.map_store import MapStore, _mat_to_quat_np_batch, _pose_np
+from asdslam_torch.utils import graphs
 from asdslam_torch.utils.tracing import Tracer
+
+FUSE_PAIRS = 2 * 10  # the fuse's pair capacity (10 neighbours, both directions)
+
+# the two device functions of a keyframe's pass, each captured (the
+# reference jits each, mapping_kernels.py:26 and :80)
+_triangulate = graphs.captured(mapping_kernels.triangulate_neighbors, "triangulate_neighbors")
+_fuse = graphs.captured(mapping_kernels.fuse_pairs, "fuse_pairs")
+
+
+def pad_triangulation_slots(feats, nb_free, nb_R, nb_t, Q: int):
+    """The live neighbour slots (features, free masks [L, N], poses [L, 3, 3]
+    and [L, 3]) padded to Q slots as the reference pads them
+    (local_mapping.py:156-166): the first neighbour's features, nothing
+    free, the identity pose.  A padded slot matches nothing: its result is
+    -1 throughout."""
+    pad = Q - len(feats)
+    n = nb_free.shape[1]
+    return (list(feats) + [feats[0]] * pad,
+            np.concatenate([nb_free, np.zeros((pad, n), bool)]),
+            np.concatenate([nb_R, np.broadcast_to(np.eye(3, dtype=np.float32), (pad, 3, 3))]),
+            np.concatenate([nb_t, np.zeros((pad, 3), np.float32)]))
 
 
 class LocalMapper:
@@ -164,18 +191,22 @@ class LocalMapper:
             return
 
         keep = keep[:cfg.triangulation_neighbors]
-        # only the live neighbour slots are evaluated (the reference pads to
-        # a fixed count with slots that can match nothing)
         with self.tracer.span("upload"):
             feats = [store.kf_features[k] for k in keep]
             nb_free = np.stack([(store.kf_mp[k] < 0) & store.kf_host[k].valid
                                 for k in keep])
             nb_R = np.stack([_pose_np(store.kf_pose[k])[0] for k in keep])
             nb_t = np.stack([_pose_np(store.kf_pose[k])[1] for k in keep])
+            if graphs.graph_path(f1.desc):
+                # a graph takes the reference's fixed slot count, so that
+                # every keyframe replays one graph; elsewhere only the live
+                # slots are evaluated
+                feats, nb_free, nb_R, nb_t = pad_triangulation_slots(
+                    feats, nb_free, nb_R, nb_t, cfg.triangulation_neighbors)
             free1 = (store.kf_mp[kf1] < 0) & h1.valid
 
         with self.tracer.span("kernel"):
-            enc, X = mapping_kernels.triangulate_neighbors(
+            enc, X = _triangulate(
                 f1.desc, f1.uv_und, f1.level, self._dev(free1),
                 [f.desc for f in feats], [f.uv_und for f in feats],
                 [f.level for f in feats], self._dev(nb_free),
@@ -219,7 +250,7 @@ class LocalMapper:
     def _fuse_pairs(self, pairs):
         cfg = self.cfg
         store = self.store
-        Q = 2 * 10  # fixed pair capacity (10 neighbours, both directions)
+        Q = FUSE_PAIRS
         pairs = pairs[:Q]
         # a source KF observes at most n_feat points; the block's point axis
         # is BUCKETED (pow2) to the largest per-pair count — typical KFs
@@ -246,6 +277,13 @@ class LocalMapper:
             mp_valid[qi, :len(mps)] = True
             dst_pose[qi] = store.kf_pose[dst_kf]
         dst_feats = [store.kf_features[d] for _, d in pairs]
+        n_live = len(pairs)
+        if graphs.graph_path(dst_feats[0].desc):
+            # a graph takes all Q pairs, as the reference (its padded pairs,
+            # with the first pair's destination, match nothing): one graph
+            # for each point bucket P
+            dst_feats += [dst_feats[0]] * (Q - n_live)
+            n_live = None
 
         with self.tracer.span("upload"):
             # descriptors ship bf16: the matcher's dot casts to bf16 anyway,
@@ -262,15 +300,15 @@ class LocalMapper:
                       [f.level for f in dst_feats],
                       [f.valid for f in dst_feats])
         with self.tracer.span("kernel"):
-            # the padded pair slots (mp_valid all false) match nothing: only
-            # the live pairs are launched
-            enc = mapping_kernels.fuse_pairs(
+            # elsewhere the padded pair slots (mp_valid all false) are filled
+            # with -1 without a launch: only the live pairs are launched
+            enc = _fuse(
                 *blocks,
                 self.K, self._dev(self.scale_factors),
                 width=float(cfg.image_width), height=float(cfg.image_height),
                 scale_factor=cfg.scale_factor, n_levels=cfg.n_levels,
                 fuse_radius=cfg.fuse_radius, max_dist=cfg.match_th_high,
-                n_live=len(pairs), use_kernel=cfg.use_pallas_match)
+                n_live=n_live, use_kernel=cfg.use_pallas_match)
             enc = enc.cpu().numpy()  # single host sync
         self.last_pass["fuse_pairs"] = len(pairs)
 

@@ -6,9 +6,12 @@ matches/triangulates against up to 20 covisible KFs
 (src/vslam/src/LocalMapping.cc:299-556) and SearchInNeighbors fuses with 10
 neighbours in both directions (557-656).  The reference evaluates the padded
 neighbour axis in one program and fetches all verdicts at once; here the
-neighbours are a Python loop over the LIVE slots, every launch queued before
-the caller's single fetch, and padded slots (whose validity is all false and
-whose result is all -1) are filled on the host without a launch.
+neighbours are a Python loop over the slots it is given, every launch queued
+before the caller's single fetch.  On the CPU the caller gives only the live
+slots (``fuse_pairs`` fills the padded pairs, whose validity is all false,
+with -1 without a launch); on the card it gives the reference's padded slots,
+whose result is -1, so that one captured graph serves every keyframe
+(``backend/local_mapping.py``).
 
 ``fuse_pairs`` calls ``match.search_projection``, which on a CUDA tensor is
 the hand-written masked-NN kernel: one launch per live pair.

@@ -19,7 +19,7 @@ from typing import NamedTuple
 import torch
 
 from asdslam_torch.estimators import linalg
-from asdslam_torch.estimators.twoview import first_argmax, sample_rows
+from asdslam_torch.estimators.twoview import first_argmax, pick, sample_rows
 from asdslam_torch.geometry.triangulation import homog
 
 
@@ -84,7 +84,7 @@ def ransac_pnp(g, X, uv, valid, K, chi2_px, min_inliers: int = 10, sample_size: 
         inl = (e < chi2_px[None, :]) & (z > 0) & valid[None, :]
         counts = torch.sum(inl, dim=1)
         i = first_argmax(counts)
-        return Rs[i], ts[i], inl[i], counts[i]
+        return pick(Rs, i), pick(ts, i), pick(inl, i), pick(counts, i)
 
     R_b, t_b, inl_b, n_b = score(R, t)
 

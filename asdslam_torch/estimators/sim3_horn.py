@@ -32,6 +32,7 @@ import torch
 from torch.func import jacfwd
 
 from asdslam_torch.estimators import linalg
+from asdslam_torch.estimators.twoview import pick
 from asdslam_torch.geometry import se3, sim3
 from asdslam_torch.ops.match import _top_indices
 
@@ -109,7 +110,7 @@ def refine_sim3(s0, R0, t0, P1, P2, uv1, uv2, valid, K,
 
     w_obs = valid.to(dt)
     eye7 = torch.eye(7, dtype=dt, device=dev)
-    packed, lam = pose0, torch.tensor(1e-4, dtype=dt, device=dev)
+    packed, lam = pose0, torch.full((), 1e-4, dtype=dt, device=dev)  # no host copy
     for _ in range(iters):
         chi2 = chi2_of(packed)
         w_in = (chi2 <= chi2_th).to(dt)
@@ -183,16 +184,16 @@ def ransac_sim3(g, P1, P2, uv1, uv2, valid, K, chi2_px1, chi2_px2,
     best = _top_indices(counts, 1)[0]  # first maximum, as jnp.argmax
 
     # refit on the best hypothesis' inliers
-    w = inl[best].to(P1.dtype)
+    w = pick(inl, best).to(P1.dtype)
     s_r, R_r, t_r = horn_sim3(P1, P2, w)
     if fix_scale:
         s_r = torch.ones_like(s_r)
     inl_r = count_inliers(s_r[None], R_r[None], t_r[None])[0]
-    use_refit = torch.sum(inl_r) >= counts[best]
-    s_f = torch.where(use_refit, s_r, s_h[best])
-    R_f = torch.where(use_refit, R_r, R_h[best])
-    t_f = torch.where(use_refit, t_r, t_h[best])
-    inl_f = torch.where(use_refit, inl_r, inl[best])
+    use_refit = torch.sum(inl_r) >= pick(counts, best)
+    s_f = torch.where(use_refit, s_r, pick(s_h, best))
+    R_f = torch.where(use_refit, R_r, pick(R_h, best))
+    t_f = torch.where(use_refit, t_r, pick(t_h, best))
+    inl_f = torch.where(use_refit, inl_r, pick(inl, best))
     n = torch.sum(inl_f)
     return Sim3Result(success=n >= min_inliers, s=s_f, R=R_f, t=t_f,
                       inliers=inl_f, n_inliers=n)

@@ -56,6 +56,13 @@ def first_argmax(x):
     return torch.sort(x, descending=True, stable=True).indices[0]
 
 
+def pick(x, i):
+    """``x[i]`` for a 0-d index tensor ``i``, gathered on the device:
+    indexing with a 0-d tensor reads it back to the host, which no CUDA-graph
+    capture can hold."""
+    return torch.index_select(x, 0, i.reshape(1))[0]
+
+
 def sample_rows(g, valid, k: int):
     """[iters, k] sample indices from the draw matrix ``g`` [iters, N]: the k
     largest draws of each row among the valid columns, ties to the lower
@@ -226,8 +233,9 @@ def _decompose_e(E):
     # enforce rotations
     U = U * torch.sign(torch.linalg.det(U))
     Vt = Vt * torch.sign(torch.linalg.det(Vt))
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=E.dtype, device=E.device)
+    # made on the device: a host-to-device copy could not be captured
+    z, o = torch.zeros_like(E[0, 0]), torch.ones_like(E[0, 0])
+    W = torch.stack([torch.stack([z, -o, z]), torch.stack([o, z, z]), torch.stack([z, z, o])])
     R1 = U @ W @ Vt
     R2 = U @ W.T @ Vt
     tt = U[:, 2]
@@ -299,13 +307,13 @@ def _ransac_refit(solve, rows_all, score, to_pixels, samples, p1n, p2n):
     models = to_pixels(solve(p1n[samples], p2n[samples]))
     scores, inl = score(models)
     i = first_argmax(scores)
-    inliers0 = inl[i]
+    inliers0 = pick(inl, i)
     refit = linalg.null_vector(rows_all(inliers0)[None])[0].reshape(3, 3)
     M_refit = to_pixels(refit[None])[0]
     sc_r, inl_r = score(M_refit[None])
-    better = sc_r[0] > scores[i]
-    S = torch.where(better, sc_r[0], scores[i])
-    best = torch.where(better, M_refit, models[i])
+    better = sc_r[0] > pick(scores, i)
+    S = torch.where(better, sc_r[0], pick(scores, i))
+    best = torch.where(better, M_refit, pick(models, i))
     best = best / _clip_lo(torch.abs(best[2, 2]), 1e-12)
     return S, best, torch.where(better, inl_r[0], inliers0)
 
@@ -372,7 +380,7 @@ def initialize_two_view(
     active = torch.where(use_h, model_is_h, ~model_is_h)
     scores = torch.where(active, n_good, -1)
     best = first_argmax(scores)
-    best_good = scores[best]
+    best_good = pick(scores, best)
     # Ambiguity check (ReconstructF/H nsimilar): evaluated on PARALLAX-VALID
     # triangulations only.  The counted total includes near-infinite points
     # whose cheirality is unknowable, and the twisted-pair wrong solution of
@@ -381,19 +389,19 @@ def initialize_two_view(
     # ambiguous reconstructions) without rejecting every street scene.
     n_tri = torch.sum(good, dim=1, dtype=torch.int32)
     tri_scores = torch.where(active, n_tri, -1)
-    best_tri = tri_scores[best]
+    best_tri = pick(tri_scores, best)
     n_similar = torch.sum((tri_scores > 0.7 * best_tri) & (tri_scores > 0) & active)
 
     n_inl = torch.sum(torch.where(use_h, h_inliers, f_inliers), dtype=torch.int32)
     min_good = torch.clamp((0.9 * n_inl).to(torch.int32), min=min_triangulated)
     success = ((best_good >= min_good)
                & (n_similar == 1)
-               & (par_cos[best] < min_parallax_cos))
+               & (pick(par_cos, best) < min_parallax_cos))
 
     return TwoViewResult(
         success=success,
         used_homography=use_h,
-        R=Rc[best], t=tc[best],
-        points=X[best], good=good[best],
+        R=pick(Rc, best), t=pick(tc, best),
+        points=pick(X, best), good=pick(good, best),
         score_h=SH, score_f=SF,
     )

@@ -39,6 +39,13 @@ keyframes only with ``cfg.loc_extend_map`` (``_may_insert_kfs``).
 Random draws (the RANSAC sample matrices) come from ``Tracker._draws``: a
 CPU ``torch.Generator`` seeded 42, so a CPU run and a CUDA run see the same
 draws; a test may replace the method to replay another stream.
+
+The staged paths', the relocalization's and the bootstrap's device functions
+are module-level ``graphs.captured`` callables (the reference jits each), so
+on the card each call replays a CUDA graph: the window search and the
+two-view initializer, the global search, PnP RANSAC, pose-only BA, the
+motion model's projection search, and the projection searches of the local
+map and of the relocalization's widening (``project_search``).
 """
 
 from __future__ import annotations
@@ -59,12 +66,57 @@ from asdslam_torch.geometry import se3
 from asdslam_torch.loop import vocab as vocab_mod
 from asdslam_torch.mapping.map_store import MapStore, _pose_np
 from asdslam_torch.ops import match
+from asdslam_torch.utils import graphs
 from asdslam_torch.utils.tracing import Tracer
 
 NO_IMAGES = 0
 NOT_INITIALIZED = 1
 OK = 2
 LOST = 3
+
+
+def two_view(g, uv1, uv2, valid, K, sigma: float, min_triangulated: int):
+    """``twoview.initialize_two_view`` (jitted in the reference,
+    twoview.py:270) and the second view's pose7.  Returns (success, good,
+    pose2, points)."""
+    res = twoview.initialize_two_view(g, uv1, uv2, valid, K, sigma=sigma,
+                                      min_triangulated=min_triangulated)
+    return res.success, res.good, se3.pose_pack(res.R, res.t), res.points
+
+
+def motion_search(*args, **kwargs):
+    """``match.search_projection`` as it stands at the call (a check may
+    wrap it): the motion model's search of the last frame's points."""
+    return match.search_projection(*args, **kwargs)
+
+
+def project_search(pose7, K, pos, normal, min_dist, max_dist_mp, valid_a, desc_a,
+                   desc_b, uv_b, valid_b, levels_b, skip_b, scale_dev, radius: float, bounds,
+                   max_dist: float, ratio: float, min_view_cos: float, scale_factor: float,
+                   n_levels: int, use_kernel: bool):
+    """SearchByProjection of a padded block of map points through the pose
+    estimate ``pose7`` into the current frame's features (the local map's,
+    the relocalization's widening): ``visibility.project_points``, radius x
+    the predicted level's scale, ``match.search_projection`` with the level
+    gate, skipping the features in ``skip_b``.  Returns (idx, ok)."""
+    bx0, bx1, by0, by1 = bounds
+    uv, pred_level, _, vis = visibility.project_points(
+        pose7, K, pos, normal, min_dist, max_dist_mp, valid_a, bx1, by1, scale_factor,
+        n_levels, min_view_cos=min_view_cos, x_min=bx0, y_min=by0)
+    radii = radius * scale_dev[pred_level.to(torch.int64)]
+    idx, _, ok = match.search_projection(
+        desc_a, desc_b, uv, uv_b, vis, valid_b, radii, max_dist, ratio=ratio,
+        pred_level_a=pred_level, levels_b=levels_b, skip_b=skip_b, use_kernel=use_kernel)
+    return idx, ok
+
+
+_search_window = graphs.captured(match.search_window, "search_window")
+_two_view = graphs.captured(two_view, "initialize_two_view")
+_search_global = graphs.captured(match.search_global, "track_search_global")
+_ransac_pnp = graphs.captured(pnp_mod.ransac_pnp, "ransac_pnp")
+_pose_only = graphs.captured(ba.pose_only_optimize, "pose_only_optimize")
+_motion_search = graphs.captured(motion_search, "motion_search")
+_project_search = graphs.captured(project_search, "project_search")
 
 
 def cfg_giveup(cfg) -> int:
@@ -786,7 +838,7 @@ class Tracker:
         # simply fails to initialize until motion slows.
         widen = min(4.0, 2.0 ** (self._init_fail_count // 20))
         with self.tracer.span("match"):
-            idx, d, ok = match.search_window(
+            idx, d, ok = _search_window(
                 f0.desc, feat.desc, f0.uv_und, feat.uv_und, f0.valid, feat.valid,
                 radius=cfg.init_search_window * widen,
                 max_dist=cfg.match_th_low * 2,
@@ -805,13 +857,9 @@ class Tracker:
         uv2 = feat.uv_und[idx]
         g = self._draws("twoview", cfg.init_ransac_iters, cfg.n_features)
         with self.tracer.span("twoview"):
-            res = twoview.initialize_two_view(
-                g, uv1, uv2, ok, self.K,
-                sigma=cfg.init_sigma,
-                min_triangulated=cfg.init_min_triangulated,
-            )
-            pose2_dev = se3.pose_pack(res.R, res.t)
-            success, good, pose2, pts = _fetch(res.success, res.good, pose2_dev, res.points)
+            success, good, pose2, pts = _fetch(*_two_view(
+                g, uv1, uv2, ok, self.K, sigma=cfg.init_sigma,
+                min_triangulated=cfg.init_min_triangulated))
         if not bool(success):
             self._init_fail_count += 1
             return
@@ -989,7 +1037,7 @@ class Tracker:
         )
         lvl_scale = self._scale_dev[self.last_feat.level.to(torch.int64)]
         for radius in (cfg.search_radius_motion, cfg.search_radius_motion_wide):
-            idx, d, mok = match.search_projection(
+            idx, d, mok = _motion_search(
                 self.last_feat.desc, feat.desc, uv, feat.uv_und,
                 vis, feat.valid, radius * lvl_scale, cfg.match_th_high,
                 ratio=1.0, pred_level_a=self.last_feat.level,
@@ -1016,7 +1064,7 @@ class Tracker:
         kf_mp = self.store.kf_mp[self.ref_kf]
         has_mp = kf_mp >= 0
         valid_a = self._dev(has_mp) & kf_feat.valid
-        idx, d, mok = match.search_global(
+        idx, d, mok = _search_global(
             kf_feat.desc, feat.desc, valid_a, feat.valid,
             max_dist=cfg.match_th_low * 2, ratio=0.7,
         )
@@ -1035,7 +1083,7 @@ class Tracker:
         pos = self.store.mp_pos[mp_ids]
         valid = has & self.store.mp_valid[mp_ids]
         inv_s2 = self._inv_sigma2_dev[feat.level.to(torch.int64)]
-        pose, inl, n_in = ba.pose_only_optimize(
+        pose, inl, n_in = _pose_only(
             self._dev(pose_init, torch.float32), self._dev(pos), feat.uv_und,
             inv_s2, self._dev(valid), self.K,
             rounds=cfg.pose_opt_rounds, iters=cfg.pose_opt_iters,
@@ -1081,7 +1129,7 @@ class Tracker:
             kf_feat = store.kf_features[c]
             kf_mp = store.kf_mp[c]
             has_mp = kf_mp >= 0
-            idx, d, mok = match.search_global(
+            idx, d, mok = _search_global(
                 kf_feat.desc, feat.desc, self._dev(has_mp) & kf_feat.valid,
                 feat.valid, max_dist=cfg.match_th_low * 2, ratio=0.75)
             idx_np, mok_np = _fetch(idx, mok)
@@ -1099,7 +1147,7 @@ class Tracker:
             chi2_px = cfg.reloc_ransac_th2 * sigma2_dev[feat.level.to(torch.int64)]
             g = self._draws("pnp", cfg.reloc_ransac_iters, cfg.n_features,
                             seed=int(store.n_kf) * 131 + int(c))
-            res = pnp_mod.ransac_pnp(
+            res = _ransac_pnp(
                 g, self._dev(X), feat.uv_und, self._dev(valid), self.K,
                 chi2_px, min_inliers=cfg.reloc_ransac_min_inliers)
             success, pose0 = _fetch(res.success, se3.pose_pack(res.R, res.t))
@@ -1127,19 +1175,23 @@ class Tracker:
                 return True
         return False
 
-    def _project_block(self, mp_p, valid_a, **kw):
-        """Project a padded block of map points through the current pose
-        estimate.  Returns (desc block, uv, pred_level, visible)."""
+    def _search_by_projection(self, feat, mp_p, valid_a, skip_b, radius: float,
+                              max_dist: float, ratio: float, min_view_cos: float):
+        """``project_search`` of a padded block of map points through the
+        current pose estimate into ``feat``.  Returns (idx, ok) on the
+        device."""
         cfg = self.cfg
         store = self.store
-        uv, pred_level, view_cos, vis = visibility.project_points(
+        return _project_search(
             self._dev(self.last_pose), self.K,
             self._dev(store.mp_pos[mp_p]), self._dev(store.mp_normal[mp_p]),
             self._dev(store.mp_min_dist[mp_p]), self._dev(store.mp_max_dist[mp_p]),
-            self._dev(valid_a), self._bx1, self._by1,
-            cfg.scale_factor, cfg.n_levels,
-            x_min=self._bx0, y_min=self._by0, **kw)
-        return self._dev(store.mp_desc[mp_p], self._desc_dtype), uv, pred_level, vis
+            self._dev(valid_a), self._dev(store.mp_desc[mp_p], self._desc_dtype),
+            feat.desc, feat.uv_und, feat.valid, feat.level, self._dev(skip_b),
+            self._scale_dev, radius=radius, bounds=(self._bx0, self._bx1, self._by0, self._by1),
+            max_dist=max_dist, ratio=ratio, min_view_cos=min_view_cos,
+            scale_factor=cfg.scale_factor, n_levels=cfg.n_levels,
+            use_kernel=cfg.use_pallas_match)
 
     def _bind_first_wins(self, cur_mp, idx_np, mok_np, mp_p) -> int:
         """Vectorized first-wins scatter (row order = candidate order, as a
@@ -1172,13 +1224,8 @@ class Tracker:
         pad = P - len(mps)
         mp_p = np.pad(mps, (0, pad), constant_values=0)
         valid_a = np.pad(np.ones(len(mps), bool), (0, pad))
-        desc, uv, pred_level, vis = self._project_block(mp_p, valid_a, min_view_cos=-1.0)
-        radii = radius * self._scale_dev[pred_level.to(torch.int64)]
-        idx, d, mok = match.search_projection(
-            desc, feat.desc, uv, feat.uv_und,
-            vis, feat.valid, radii, max_dist,
-            ratio=1.0, pred_level_a=pred_level, levels_b=feat.level,
-            skip_b=self._dev(self.cur_mp >= 0), use_kernel=cfg.use_pallas_match)
+        idx, mok = self._search_by_projection(feat, mp_p, valid_a, self.cur_mp >= 0, radius,
+                                              max_dist, ratio=1.0, min_view_cos=-1.0)
         idx_np, mok_np = _fetch(idx, mok)
         return self._bind_first_wins(self.cur_mp, idx_np, mok_np, mp_p)
 
@@ -1216,14 +1263,9 @@ class Tracker:
             pad = P - len(cand)
             cand_p = np.pad(cand, (0, pad), constant_values=0)
             valid_a = np.pad(np.ones(len(cand), bool), (0, pad))
-            desc, uv, pred_level, vis = self._project_block(cand_p, valid_a)
-            radii = cfg.search_radius_local * self._scale_dev[pred_level.to(torch.int64)]
-            idx, d, mok = match.search_projection(
-                desc, feat.desc, uv, feat.uv_und,
-                vis, feat.valid, radii, cfg.match_th_high,
-                ratio=0.8, pred_level_a=pred_level, levels_b=feat.level,
-                skip_b=self._dev(cur_mp >= 0), use_kernel=cfg.use_pallas_match,
-            )
+            idx, mok = self._search_by_projection(feat, cand_p, valid_a, cur_mp >= 0,
+                                                  cfg.search_radius_local, cfg.match_th_high,
+                                                  ratio=0.8, min_view_cos=0.5)
             idx_np, mok_np = _fetch(idx, mok)
             self._bind_first_wins(cur_mp, idx_np, mok_np, cand_p)
 

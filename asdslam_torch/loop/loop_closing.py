@@ -22,8 +22,11 @@ Random draws (the vocabulary's fallback picks and each candidate's Sim3
 RANSAC samples) come from ``LoopCloser._vocab_draws`` / ``_sim3_draws``:
 CPU ``torch.Generator``s seeded as the reference seeds its keys (11, and the
 keyframe id), so a CPU run and a CUDA run see the same draws; a test may
-replace the methods to replay the JAX streams.  The two projection searches
-(``_count_guided_matches``, ``_fuse_mps_into_kf``) go through
+replace the methods to replay the JAX streams.  The funnel's device work is
+four module-level programs, each ``graphs.captured`` (the reference jits
+each) and so replayed from a CUDA graph on the card: the global search, the
+Sim3 RANSAC with its refine, the two guided searches of the mutual check,
+and a projection search (the correction's fuse).  The projection searches go through
 ``match.search_projection``, so on a CUDA device through the masked-NN
 kernel.  ``cfg.n_devices > 1`` routes the global BA through the
 point-major mesh solver (``parallel/dist.py``), as the reference does; the
@@ -50,6 +53,7 @@ from asdslam_torch.ops import match
 from asdslam_torch.parallel import dist
 from asdslam_torch.mapping.map_store import (
     MapStore, _mat_to_quat_np_batch, _pose_np, _pose_np_batch)
+from asdslam_torch.utils import graphs
 from asdslam_torch.utils.tracing import Tracer
 
 
@@ -63,6 +67,50 @@ def _pow2(n: int, lo: int = 4096) -> int:
     while b < n:
         b *= 2
     return b
+
+
+# --------------------------------------------------------------------------- #
+# The loop funnel's device programs, each captured (the reference jits each)
+# --------------------------------------------------------------------------- #
+def sim3_program(g, P1, P2, uv1, uv2, valid, K, chi2_px1, chi2_px2, inv_s2_1, inv_s2_2,
+                 min_inliers: int):
+    """``sim3_horn.ransac_sim3`` then ``refine_sim3`` from its hypothesis and
+    inliers (the reference jits each, sim3_horn.py:64 and :139; nothing is
+    read between them).  Returns (success, s, R, t, refined inliers)."""
+    res = sim3_horn.ransac_sim3(g, P1, P2, uv1, uv2, valid, K, chi2_px1, chi2_px2,
+                                min_inliers=min_inliers)
+    s, R, t, inl = sim3_horn.refine_sim3(res.s, res.R, res.t, P1, P2, uv1, uv2, res.inliers,
+                                         K, inv_s2_1, inv_s2_2)
+    return res.success, s, R, t, inl
+
+
+def project_search(pose7, K, pos, normal, min_dist, max_dist_mp, valid_a, desc_a,
+                   desc_b, uv_b, valid_b, scale_dev, radius: float, bounds, max_dist: float,
+                   scale_factor: float, n_levels: int, use_kernel: bool):
+    """SearchByProjection of a padded block of map points through ``pose7``
+    into a keyframe's features: ``visibility.project_points`` (any viewing
+    angle) and ``match.search_projection`` with radius x the predicted
+    level's scale.  Returns (idx, ok)."""
+    bx0, bx1, by0, by1 = bounds
+    uv, pred_level, _, vis = visibility.project_points(
+        pose7, K, pos, normal, min_dist, max_dist_mp, valid_a, bx1, by1,
+        scale_factor, n_levels, min_view_cos=-1.0, x_min=bx0, y_min=by0)
+    radii = radius * scale_dev[pred_level.to(torch.int64)]
+    idx, _, ok = match.search_projection(desc_a, desc_b, uv, uv_b, vis, valid_b, radii,
+                                         max_dist, ratio=1.0, use_kernel=use_kernel)
+    return idx, ok
+
+
+def guided_counts(fwd, bwd, **constants):
+    """The matches of ``project_search`` on two blocks, as int32 [2]."""
+    return torch.stack([torch.sum(project_search(*block, **constants)[1], dtype=torch.int32)
+                        for block in (fwd, bwd)])
+
+
+_search_global = graphs.captured(match.search_global, "loop_search_global")
+_sim3 = graphs.captured(sim3_program, "loop_sim3")
+_guided_counts = graphs.captured(guided_counts, "loop_guided")
+_project_search = graphs.captured(project_search, "loop_project_search")
 
 
 class LoopCloser:
@@ -236,7 +284,7 @@ class LoopCloser:
         mp2 = store.kf_mp[cand]
         v1 = self._dev(mp1 >= 0) & f1.valid
         v2 = self._dev(mp2 >= 0) & f2.valid
-        idx, d, mok = match.search_global(
+        idx, d, mok = _search_global(
             f1.desc, f2.desc, v1, v2,
             max_dist=cfg.match_th_low * 2, ratio=cfg.match_nn_ratio_loop)
         idx_np, mok_np = idx.cpu().numpy(), mok.cpu().numpy()
@@ -260,18 +308,15 @@ class LoopCloser:
         th1 = 9.21 / self.inv_sigma2[lvl1]
         th2 = 9.21 / self.inv_sigma2[lvl2]
 
-        P1d, P2d, uv1d, uv2d = (self._dev(x) for x in (P1, P2, uv1, uv2))
-        res = sim3_horn.ransac_sim3(
+        # the RANSAC and the refine as one program, fetched once: the refine
+        # runs whatever the RANSAC's verdict, its result simply unused when
+        # success is False
+        out = _sim3(
             self._sim3_draws(kf, cfg.sim3_ransac_iters, len(P1)),
-            P1d, P2d, uv1d, uv2d, self._dev(valid), self.K,
-            self._dev(th1), self._dev(th2), min_inliers=cfg.sim3_ransac_min_inliers)
-        # queue the refine WITHOUT reading the RANSAC verdict first: its
-        # result is simply unused when success is False, and one fetch
-        # below replaces three
-        s_d, R_d, t_d, inl_d = sim3_horn.refine_sim3(
-            res.s, res.R, res.t, P1d, P2d, uv1d, uv2d, res.inliers, self.K,
-            self._dev(self.inv_sigma2[lvl1]), self._dev(self.inv_sigma2[lvl2]))
-        success, s, R, t, inl = (x.cpu().numpy() for x in (res.success, s_d, R_d, t_d, inl_d))
+            *(self._dev(x) for x in (P1, P2, uv1, uv2, valid)), self.K,
+            *(self._dev(x) for x in (th1, th2, self.inv_sigma2[lvl1], self.inv_sigma2[lvl2])),
+            min_inliers=cfg.sim3_ransac_min_inliers)
+        success, s, R, t, inl = (x.cpu().numpy() for x in out)
         if not bool(success):
             return False
         self.counters["ransac_pass"] += 1
@@ -304,9 +349,8 @@ class LoopCloser:
         pose_bwd = np.concatenate([
             _quat(Rn @ Rk), (Rn @ tk + tn / S_ck[0]).astype(np.float32)])
 
-        n_fwd_d = self._count_guided_matches(kf, pose_fwd, loop_mps)
-        n_bwd_d = self._count_guided_matches(cand, pose_bwd, own_mps)
-        n_fwd, n_bwd = (int(x) for x in torch.stack([n_fwd_d, n_bwd_d]).cpu())
+        n_fwd, n_bwd = (int(x) for x in self._guided_support(
+            kf, pose_fwd, loop_mps, cand, pose_bwd, own_mps).cpu())
         total = max(n_inl, min(n_fwd, n_bwd))
         if total < cfg.loop_min_total_matches:
             return False
@@ -315,42 +359,48 @@ class LoopCloser:
         self._correct_loop(kf, cand, S_ck, loop_mps)
         return True
 
-    def _project_search(self, pose7, mps, dst_kf: int, radius: float):
-        """Project a block of map points through ``pose7`` into ``dst_kf``'s
-        features and search (SearchByProjection).  Returns (padded point ids,
-        idx, ok) on the device; None when ``mps`` is empty."""
-        cfg = self.cfg
+    def _search_block(self, pose7, mps, dst_kf: int):
+        """The device arguments of a projection search (SearchByProjection)
+        of the map points ``mps``, padded to ``local_ba_max_points`` rows,
+        through ``pose7`` into ``dst_kf``'s features (``project_search``'s
+        first twelve), and the padded point ids."""
         store = self.store
-        P = cfg.local_ba_max_points
-        mps = np.asarray(mps)[:P]
+        P = self.cfg.local_ba_max_points
+        mps = np.asarray(mps, np.int64)[:P]
         pad = P - len(mps)
         mp_p = np.pad(mps, (0, pad), constant_values=0)
         valid_a = np.pad(np.ones(len(mps), bool), (0, pad))
         fd = store.kf_features[dst_kf]
-        bx0, bx1, by0, by1 = cfg.undistorted_bounds
-        uv, pred_level, view_cos, vis = visibility.project_points(
-            self._dev(pose7, torch.float32), self.K,
-            self._dev(store.mp_pos[mp_p]), self._dev(store.mp_normal[mp_p]),
-            self._dev(store.mp_min_dist[mp_p]), self._dev(store.mp_max_dist[mp_p]),
-            self._dev(valid_a), bx1, by1,
-            cfg.scale_factor, cfg.n_levels, min_view_cos=-1.0,
-            x_min=bx0, y_min=by0)
-        radii = radius * self._scale_dev[pred_level.to(torch.int64)]
-        idx, d, ok = match.search_projection(
-            self._dev(store.mp_desc[mp_p], self._desc_dtype), fd.desc, uv, fd.uv_und,
-            vis, fd.valid, radii, cfg.match_th_high, ratio=1.0,
-            use_kernel=cfg.use_pallas_match)
-        return mp_p, idx, ok
+        block = (self._dev(pose7, torch.float32), self.K,
+                 self._dev(store.mp_pos[mp_p]), self._dev(store.mp_normal[mp_p]),
+                 self._dev(store.mp_min_dist[mp_p]), self._dev(store.mp_max_dist[mp_p]),
+                 self._dev(valid_a), self._dev(store.mp_desc[mp_p], self._desc_dtype),
+                 fd.desc, fd.uv_und, fd.valid, self._scale_dev)
+        return mp_p, block
+
+    def _search_constants(self, radius: float):
+        cfg = self.cfg
+        return dict(radius=radius, bounds=tuple(cfg.undistorted_bounds),
+                    max_dist=cfg.match_th_high, scale_factor=cfg.scale_factor,
+                    n_levels=cfg.n_levels, use_kernel=cfg.use_pallas_match)
+
+    def _guided_support(self, kf: int, pose_fwd, loop_mps, cand: int, pose_bwd, own_mps):
+        """The SearchBySim3 mutual check's two SearchByProjections, one
+        program: the loop side's points into kf through the Sim3-corrected
+        (scale-folded) ``pose_fwd``, kf's own points into cand through
+        ``pose_bwd``.  Returns the two match counts as a DEVICE int32 [2]
+        (the caller fetches them at once); an empty side counts 0."""
+        _, fwd = self._search_block(pose_fwd, loop_mps, kf)
+        _, bwd = self._search_block(pose_bwd, own_mps, cand)
+        return _guided_counts(fwd, bwd, **self._search_constants(10.0))
 
     def _count_guided_matches(self, dst_kf: int, pose_corr, mps):
-        """SearchByProjection of map points into dst_kf's features through a
-        Sim3-corrected (scale-folded) pose — one direction of the
-        SearchBySim3 mutual check.  Returns a DEVICE scalar (callers batch
-        the fetch of both directions)."""
-        if len(mps) == 0:
-            return torch.zeros((), dtype=torch.int32, device=self.device)
-        _, idx, ok = self._project_search(pose_corr, mps, dst_kf, 10.0)
-        return torch.sum(ok, dtype=torch.int32)
+        """One direction of the mutual check (the reference's call): the
+        matches of map points ``mps`` in dst_kf's features through
+        ``pose_corr``, a DEVICE int32 scalar."""
+        _, block = self._search_block(pose_corr, mps, dst_kf)
+        return torch.sum(_project_search(*block, **self._search_constants(10.0))[1],
+                         dtype=torch.int32)
 
     # ------------------------------------------------------------------ #
     def _correct_loop(self, kf: int, cand: int, S_ck, loop_mps):
@@ -442,8 +492,8 @@ class LoopCloser:
         mps = np.asarray([m for m in mps if store.mp_valid[m]], np.int32)
         if len(mps) == 0:
             return
-        mp_p, idx, ok = self._project_search(store.kf_pose[dst_kf], mps, dst_kf,
-                                             cfg.fuse_radius)
+        mp_p, block = self._search_block(store.kf_pose[dst_kf], mps, dst_kf)
+        idx, ok = _project_search(*block, **self._search_constants(cfg.fuse_radius))
         idx_np, ok_np = idx.cpu().numpy(), ok.cpu().numpy()
         for a in np.nonzero(ok_np)[0]:
             m = int(mp_p[a])

@@ -27,6 +27,8 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
+from asdslam_torch.utils import graphs
+
 
 class Vocabulary(NamedTuple):
     levels: List[torch.Tensor]  # level l: [b^l, D] centroids (level 0 = root, unused)
@@ -116,13 +118,20 @@ def train_vocab(descs, rand_idx, branching: int = 10, depth: int = 4,
     return Vocabulary(levels=levels, idf=idf, branching=branching, depth=depth)
 
 
-def _descend(levels, descs, branching: int, depth: int):
+def descend(levels, descs, branching: int, depth: int):
+    """The leaf word of each descriptor: from the root, the nearest child
+    at each level (jitted in the reference, vocab.py:85)."""
     node = torch.zeros(descs.shape[0], dtype=torch.int64, device=descs.device)
     for level in range(1, depth + 1):
         n_parents = branching ** (level - 1)
         node = node * branching + _nearest_child(levels[level], node, descs, n_parents,
                                                  branching)
     return node
+
+
+# once per keyframe and per relocalization: replayed from a CUDA graph on
+# the card
+_descend = graphs.captured(descend, "bow_descend")
 
 
 def transform(vocab: Vocabulary, descs, valid=None):

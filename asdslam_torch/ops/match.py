@@ -102,8 +102,14 @@ def window_mask(uv_a, uv_b, radius, valid_a=None, valid_b=None):
     """[N, M] additive mask: 0 where |uv_a_i - uv_b_j| <= radius else +inf.
     ``radius`` may be a scalar or per-row [N]."""
     d = uv_a[:, None, :] - uv_b[None, :, :]
-    r = torch.as_tensor(radius, dtype=torch.float32, device=uv_a.device)
-    r2 = (r * r) if r.ndim == 0 else (r * r)[:, None]
+    if isinstance(radius, torch.Tensor):
+        r = radius.to(device=uv_a.device, dtype=torch.float32)
+        r2 = (r * r) if r.ndim == 0 else (r * r)[:, None]
+    else:
+        # a number: squared in f32 on the host, as the device would square
+        # it (a host-to-device copy could not be captured)
+        r = torch.tensor(radius, dtype=torch.float32)
+        r2 = float(r * r)
     inside = torch.sum(d * d, dim=-1) <= r2
     if valid_a is not None:
         inside = inside & valid_a[:, None]

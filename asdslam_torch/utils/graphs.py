@@ -22,6 +22,8 @@ replays it:
   callable keeps at most ``MAX_GRAPHS`` keys, dropping the oldest.
 - On CPU tensors the callable is ``fn``: the CPU path, which the tests hold
   against the reference.  ``.eager`` is ``fn`` itself, for comparisons.
+  ``graph_path(*tensors)`` tells a caller which path a call takes, so that
+  it can pad its inputs to fixed shapes where a graph will replay them.
 - A call made while the current stream is capturing runs ``fn``, which thus
   becomes part of the outer graph (the extractor inside the fused step).
 - There is no route around the graph on the card: a failed capture raises.
@@ -34,6 +36,8 @@ replays it:
   goes through ``host_effect(f)``: ``f()`` runs at once outside a capture,
   and inside one is recorded and run at each replay instead.
 - The captured path records no autograd history.
+- ``last_call()`` says what the calling thread's last call of a captured
+  callable did ("eager", "warm-up", "capture" or "replay"), for timings.
 
 Two threads must not share a stream while they call captured functions (the
 tracker and the mapping worker each have their own).  Warm-ups and captures
@@ -56,6 +60,13 @@ MAX_GRAPHS = 16   # keys kept per captured callable
 _tls = threading.local()        # .effects: the host effects of this thread's capture
 _capture_lock = threading.RLock()  # one warm-up or capture at a time
 _side_streams = {}              # device index -> the side stream of warm-ups and captures
+
+
+def last_call():
+    """What this thread's last call of a captured callable did: "eager" (CPU
+    inputs, or inside a capture), "warm-up", "capture" (with its first
+    replay) or "replay"; None before any."""
+    return getattr(_tls, "last", None)
 
 
 def host_effect(f):
@@ -111,6 +122,13 @@ def _graph_device(leaves):
         raise ValueError(f"captured: inputs on {devices}; a graph takes tensors of one CUDA "
                          "device")
     return cuda[0]
+
+
+def graph_path(*tensors) -> bool:
+    """Whether a captured call with these tensor inputs takes the graph path
+    (they lie on one CUDA device), so that its caller can give it the fixed
+    shapes that let one graph serve every call."""
+    return _graph_device(list(tensors)) is not None
 
 
 def _capturing():
@@ -195,7 +213,9 @@ class Captured:
         sig = _flatten((args, kwargs), leaves)
         device = _graph_device(leaves)
         if device is None or getattr(_tls, "effects", None) is not None or _capturing():
-            return self.eager(*args, **kwargs)
+            out = self.eager(*args, **kwargs)
+            _tls.last = "eager"
+            return out
         key = (sig, _stream_key(device))
         with self._lock:
             entry = self._entries.get(key)
@@ -210,8 +230,12 @@ class Captured:
         with torch.no_grad():
             if entry is None:
                 with _capture_lock:
-                    return _warm(self.eager, args, kwargs, device)
+                    out = _warm(self.eager, args, kwargs, device)
+                _tls.last = "warm-up"
+                return out
+            kind = "replay"
             if entry.graph is None:
+                kind = "capture"
                 self._capture(entry, args, kwargs, leaves, device)
             for dst, src in zip(entry.inputs, leaves):
                 dst.copy_(src)
@@ -219,6 +243,7 @@ class Captured:
             for f in entry.effects:
                 f()
             entry.replays += 1
+            _tls.last = kind
             return _rebuild(entry.outputs, (t.clone() for t in entry.out_leaves))
 
     def _capture(self, entry, args, kwargs, leaves, device):

@@ -205,6 +205,30 @@ Phases, each of which raises on failure (exit code != 0):
       eager: the frame trajectory bitwise the captured run's; frames/s of
       both (phase 6's dispatch check ran on the captured step).
 
+15. the reference's remaining jit sites (JIT_SITES: the loop funnel, the
+   keyframe pass, relocalization and the staged track, the bootstrap, the
+   BoW descent), each a module-level graphs.captured callable, recorded by
+   SiteLog from phase 5 to phase 8 (each call's host ms and what it did:
+   warm-up, capture or replay; the arguments of each site's first call in
+   phases 6-8):
+   a. each site on its recorded arguments: ``.eager``, then warm-up,
+      capture and replay, bit for bit; host ms of each beside the process's
+      first call and its captures and replays in phases 5-8; each site's
+      keys, shapes and pool bytes (the triangulation one shape, the fuse at
+      most four);
+   b. the Sim3 stages of phase 6's first run up to its first loop, each
+      split into the sites' calls, the essential graph, global BA and the
+      rest;
+   c. the keyframe pass's padded slots: the replay on the recorded padded
+      inputs against the same cut to the live slots (CUDA events);
+   d. phase 6's default configuration once more with every JIT site eager:
+      frame and keyframe trajectories and loops bitwise the captured first
+      run's; frames/s of it and of phase 6's first and last captured runs;
+   e. a fresh process (this script run as ``--sim3-first-calls``): the
+      first and second calls of the Sim3 program's parts, where a process's
+      first loop pays its one-off cost.
+   ``python3 chip_smoke.py --phase15`` runs it alone.
+
 Prints a `kernels` JSON line before the last line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX or of the JAX package.
@@ -777,7 +801,6 @@ def run_system(cfg, frames_u8, weights, device, record_fuse=False):
     fused step, from the fuse and in all, and (``record_fuse``) the
     arguments of the fuse's masked_nn calls."""
     import torch
-    from asdslam_torch.backend import mapping_kernels
     from asdslam_torch.frontend import track_step as ts
     from asdslam_torch.ops import masked_nn as k1
     from asdslam_torch.system import System
@@ -794,14 +817,18 @@ def run_system(cfg, frames_u8, weights, device, record_fuse=False):
             return out
         return wrapper
 
-    real_fuse, real_nn = mapping_kernels.fuse_pairs, k1.masked_nn
+    # the mapper's fuse (LocalMapper._fuse_pairs) launches K1 from a captured
+    # call: its warm-up runs in Python on real inputs (recorded), its capture
+    # on buffers that hold nothing yet (skipped), its replays not at all
+    real_fuse, real_nn = system.local_mapper._fuse_pairs, k1.masked_nn
 
     def fuse(*a, **kw):
         if not record_fuse:
             return real_fuse(*a, **kw)
 
         def recorder(*args):
-            fuse_calls.append(args)
+            if not torch.cuda.is_current_stream_capturing():
+                fuse_calls.append(args)
             return real_nn(*args)
 
         k1.masked_nn = recorder
@@ -812,7 +839,7 @@ def run_system(cfg, frames_u8, weights, device, record_fuse=False):
 
     system.tracker._fused = counted(
         ts.make_track_step(cfg, system.K, system.extract, device=device), "step")
-    mapping_kernels.fuse_pairs = counted(fuse, "fuse")
+    system.local_mapper._fuse_pairs = counted(fuse, "fuse")
     passes = []
     real_process = system.local_mapper.process
 
@@ -824,17 +851,14 @@ def run_system(cfg, frames_u8, weights, device, record_fuse=False):
     tracked, ms, is_kf = [], [], []
     torch.cuda.synchronize()
     k1.masked_nn.launches = 0
-    try:
-        for i, frame in enumerate(frames_u8):
-            n_kf = system.store.n_kf
-            t0 = time.perf_counter()
-            pose = system.track_monocular(frame, i)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            tracked.append(pose is not None)
-            is_kf.append(system.store.n_kf > n_kf)
-    finally:
-        mapping_kernels.fuse_pairs = real_fuse
+    for i, frame in enumerate(frames_u8):
+        n_kf = system.store.n_kf
+        t0 = time.perf_counter()
+        pose = system.track_monocular(frame, i)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        tracked.append(pose is not None)
+        is_kf.append(system.store.n_kf > n_kf)
     launches = k1.masked_nn.launches
     return dict(system=system, tracked=tracked, ms=np.array(ms), is_kf=np.array(is_kf),
                 passes=passes, counts=counts, launches=launches, fuse_calls=fuse_calls)
@@ -937,7 +961,7 @@ def run_default(cfg, frames_u8, weights, device, record=False):
 
     system = System(cfg, asdnet_params=weights, do_loop_closing=True, device=device)
     lc = system.loop_closer
-    for name, site in (("_count_guided_matches", "loop_guided"),
+    for name, site in (("_guided_support", "loop_guided"),
                        ("_fuse_mps_into_kf", "loop_fuse")):
         def labelled(*a, _fn=getattr(lc, name), _site=site, **kw):
             with k1.call_site(_site):
@@ -947,8 +971,12 @@ def run_default(cfg, frames_u8, weights, device, record=False):
     real_nn = k1.masked_nn
 
     def recorder(*args):
+        # the loop closer's searches are captured: the first call of a key
+        # (the warm-up) is recorded, its capture is not (its buffers hold
+        # nothing yet), its replays run no Python
         site = getattr(k1._tls, "site", None)
-        if site in recorded and len(recorded[site]) < 4:
+        if site in recorded and len(recorded[site]) < 4 \
+                and not torch.cuda.is_current_stream_capturing():
             recorded[site].append(k1_full_args(args))
         return real_nn(*args)
 
@@ -1046,18 +1074,24 @@ def check_default(first, again, poses_gt):
     return ate, path, bar
 
 
-def phase6(cfg, weights, device, card, errs, k1_cases):
+def phase6(cfg, weights, device, card, errs, k1_cases, sites=None):
     """The default configuration over the loop sequence: two runs and, timed
     between them in the same process, the synchronous mode; the checks; the
     dispatch check; K1 at the loop closer's call sites.  Adds those calls to
     ``k1_cases`` / ``errs`` and returns the numbers for the JSON line and the
     first run's System (phase 11 reads its map) and the LM loops' arguments
-    recorded in that run (phase 14c)."""
+    recorded in that run (phase 14c), and the first and last runs.  ``sites``, phase
+    15's SiteLog, labels each run and times the worker's sites in the
+    first."""
     frames_u8, poses_gt = render_loop(cfg, device)
     sync_cfg = cfg.replace(pipelined_tracking=False, async_mapping=False)
+    sites = sites or SiteLog()  # (not entered: labels only)
+    sites.phase, sites.keep, sites.timed = "6 first", True, set(LOOP_FUNNEL) | {"bow_descend"}
     with record_lm_calls() as lm_calls:
         first = run_default(cfg, frames_u8, weights, device, record=True)
+    sites.phase, sites.timed = "6 sync", ()
     sync = run_default(sync_cfg, frames_u8, weights, device)
+    sites.phase = "6 again"
     again = run_default(cfg, frames_u8, weights, device)
     ate, path, bar = check_default(first, again, poses_gt)
     check_dispatch_no_sync(again["system"], frames_u8)
@@ -1116,7 +1150,7 @@ def phase6(cfg, weights, device, card, errs, k1_cases):
         err, pairs_in, share = check_k1(case, args)
         errs.append(err)
         k1_cases[case] = (args, pairs_in, share)
-    return out, first["system"], lm_calls
+    return out, first["system"], lm_calls, (first, again)
 
 
 # --------------------------------------------------------------------------- #
@@ -1130,7 +1164,7 @@ def k1_sites():
     ("other": the staged searches, the loop closer's).  Yields a dict that
     holds "launches" and "by_site" when the block ends; every Tracker built
     inside the block is counted."""
-    from asdslam_torch.backend import mapping_kernels
+    from asdslam_torch.backend.local_mapping import LocalMapper
     from asdslam_torch.frontend.tracking import Tracker
     from asdslam_torch.ops import masked_nn as k1
 
@@ -1143,7 +1177,7 @@ def k1_sites():
     patched = [(Tracker, name, getattr(Tracker, name), site)
                for name, site in (("_dispatch_fused", "step"), ("_try_fused", "step"),
                                   ("_relocalize", "reloc"))]
-    patched.append((mapping_kernels, "fuse_pairs", mapping_kernels.fuse_pairs, "fuse"))
+    patched.append((LocalMapper, "_fuse_pairs", LocalMapper._fuse_pairs, "fuse"))
     for owner, name, fn, site in patched:
         setattr(owner, name, labelled(fn, site))
     out, counted = {}, k1._COUNTED  # the wrapper's counts, whatever stands in for it
@@ -1209,27 +1243,29 @@ def check_finite(system, run):
         raise AssertionError("non-finite map point or keyframe pose")
 
 
-def reloc_stages(tracker, feat, match_mod, pnp_mod):
+def reloc_stages(tracker, feat, match_mod, pnp_mod, search="search_global", pnp="ransac_pnp"):
     """``tracker._relocalize(feat)`` with each candidate keyframe's fate
     recorded: the global search's matches, the PnP RANSAC's verdict and
     inliers, the pose-only BA's inliers, the widening searches' new
     bindings, and the stage that rejected it ("matches": too few matches to
     map points, "pnp", "pose-only BA", "inliers": under reloc_min_inliers
     after any widening; None: accepted).  Works on either package's Tracker:
-    pass the modules it calls (ops/match.py and estimators/pnp.py).
-    Returns (accepted, the candidates' records)."""
+    pass the modules it calls and the names it calls there (the JAX
+    package's ops/match.py and estimators/pnp.py; the port's
+    frontend/tracking.py with its captured "_search_global" and
+    "_ransac_pnp").  Returns (accepted, the candidates' records)."""
     def host(x):
         return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
 
     cands = []
-    real = (match_mod.search_global, pnp_mod.ransac_pnp)
+    real = (getattr(match_mod, search), getattr(pnp_mod, pnp))
 
-    def search(*a, **kw):
+    def search_wrapper(*a, **kw):
         out = real[0](*a, **kw)
         cands.append(dict(matches=int(host(out[2]).sum()), stage="matches"))
         return out
 
-    def pnp(*a, **kw):
+    def pnp_wrapper(*a, **kw):
         res = real[1](*a, **kw)
         c = cands[-1]
         c.update(pnp=bool(host(res.success)), pnp_inliers=int(host(res.n_inliers)),
@@ -1249,12 +1285,15 @@ def reloc_stages(tracker, feat, match_mod, pnp_mod):
         cands[-1].setdefault("widened", []).append(int(n))
         return n
 
-    match_mod.search_global, pnp_mod.ransac_pnp = search, pnp
+    names = (search, pnp)
+    setattr(match_mod, names[0], search_wrapper)
+    setattr(pnp_mod, names[1], pnp_wrapper)
     tracker._optimize_current, tracker._reloc_widen = optimize, widen
     try:
         accepted = tracker._relocalize(feat)
     finally:
-        match_mod.search_global, pnp_mod.ransac_pnp = real
+        setattr(match_mod, names[0], real[0])
+        setattr(pnp_mod, names[1], real[1])
         del tracker._optimize_current, tracker._reloc_widen
     if accepted:
         cands[-1]["stage"] = None
@@ -1273,9 +1312,8 @@ def reloc_acceptance(system, frames_u8, device):
     bindings and masked_nn launches, the thin run's launches, the recorded
     arguments, the thin run's candidates).  Leaves the store thinned."""
     import torch
-    from asdslam_torch.estimators import pnp
+    from asdslam_torch.frontend import tracking
     from asdslam_torch.ops import masked_nn as k1
-    from asdslam_torch.ops import match
 
     tr, store = system.tracker, system.store
     feat = tr.extract(torch.as_tensor(frames_u8[5]).to(device).float() / 255.0)
@@ -1294,7 +1332,8 @@ def reloc_acceptance(system, frames_u8, device):
     real_nn.launches = 0
     k1.masked_nn = recorder
     try:
-        added = tr._reloc_widen(feat, kf, radius=10.0, max_dist=system.cfg.match_th_high)
+        with eager_sites(["project_search"]):  # the search in Python, recorded
+            added = tr._reloc_widen(feat, kf, radius=10.0, max_dist=system.cfg.match_th_high)
     finally:
         k1.masked_nn = real_nn
     widen_launches = real_nn.launches
@@ -1308,7 +1347,7 @@ def reloc_acceptance(system, frames_u8, device):
     store.mp_valid[:] = mask
     tr.n_inliers = 0
     real_nn.launches = 0
-    accepted, stages = reloc_stages(tr, feat, match, pnp)
+    accepted, stages = reloc_stages(tr, feat, tracking, tracking, "_search_global", "_ransac_pnp")
     if accepted:
         raise AssertionError(f"a thin map of 40 points relocalized ({tr.n_inliers} inliers)")
     return rich, int(added), widen_launches, real_nn.launches, calls, stages
@@ -1578,15 +1617,23 @@ def local_map_search(cfg):
 @contextlib.contextmanager
 def plain_k1():
     """Every masked_nn call made inside the block goes to its plain version,
-    on the card too; nothing is launched or counted."""
+    on the card too; nothing is launched or counted.  The module-level
+    capture sites are fresh ones inside the block, so that no graph captured
+    before it with the kernel is replayed."""
     from asdslam_torch.ops import masked_nn as k1
+    from asdslam_torch.utils import graphs
 
     real_nn = k1.masked_nn
+    saved = [(m, a, getattr(m, a)) for m, a in site_owners(JIT_SITES)]
     k1.masked_nn = lambda *args: k1.masked_nn_plain(*k1_full_args(args))
+    for m, a, site in saved:
+        setattr(m, a, graphs.captured(site.eager, site.name))
     try:
         yield {}
     finally:
         k1.masked_nn = real_nn
+        for m, a, site in saved:
+            setattr(m, a, site)
 
 
 @contextlib.contextmanager
@@ -3100,19 +3147,25 @@ def tree_same_bits(a, b):
 
 
 @contextlib.contextmanager
-def eager_sites():
-    """Inside the block the capture sites run eagerly: graphs.captured
-    returns its function (the extractors and fused steps built inside the
-    block), and the module-level captured LM iterations are their
-    ``.eager``.  A patch of this script only: the port has no such switch."""
+def eager_sites(names=None):
+    """Inside the block the capture sites run eagerly: with no ``names``
+    every site (graphs.captured returns its function, for the extractors
+    and fused steps built inside the block; the module-level captured LM
+    iterations and JIT_SITES are their ``.eager``); else the JIT_SITES
+    named.  A patch of this script only: the port has no such switch."""
     from asdslam_torch.backend import ba, global_ba, pose_graph
     from asdslam_torch.utils import graphs
 
-    saved = [(graphs, "captured", graphs.captured)]
-    saved += [(m, "_lm_step", m._lm_step) for m in (ba, global_ba, pose_graph)]
-    graphs.captured = lambda fn, name: fn
-    for m in (ba, global_ba, pose_graph):
-        m._lm_step = m._lm_step.eager
+    owners = site_owners(JIT_SITES if names is None else names)
+    saved = []
+    if names is None:
+        saved.append((graphs, "captured", graphs.captured))
+        owners += [(m, "_lm_step") for m in (ba, global_ba, pose_graph)]
+    saved += [(m, a, getattr(m, a)) for m, a in owners]
+    if names is None:
+        graphs.captured = lambda fn, name: fn
+    for m, a in owners:
+        setattr(m, a, getattr(m, a).eager)
     try:
         yield
     finally:
@@ -3269,17 +3322,9 @@ def record_lm_calls():
     graph, the first global BA and the local BA call with the most
     optimized cameras made inside the block, from any thread: the yielded
     dict maps each function's name to (function, args, kwargs)."""
-    import torch
     from asdslam_torch.backend import ba, global_ba, pose_graph
 
     kept, lock = {}, threading.Lock()
-
-    def clone(x):
-        if isinstance(x, torch.Tensor):
-            return x.clone()
-        if isinstance(x, tuple) and hasattr(x, "_fields"):
-            return type(x)(*map(clone, x))
-        return x
 
     def recorder(owner, name):
         real = getattr(owner, name)
@@ -3289,8 +3334,7 @@ def record_lm_calls():
             with lock:
                 keep = name not in kept or (name == "bundle_adjust" and size > kept[name][0])
                 if keep:
-                    kept[name] = (size, real, tuple(map(clone, a)),
-                                  {k: clone(v) for k, v in kw.items()})
+                    kept[name] = (size, real, clone_tree(a), clone_tree(kw))
             return real(*a, **kw)
         return real, wrapper
 
@@ -3377,6 +3421,464 @@ def phase14(cfg, step, extract, frames_u8, state, cand, lm_calls, captured_run, 
         f"{fps['eager']:.2f} [{card}]")
     torch.cuda.synchronize()
     return out
+
+
+# --------------------------------------------------------------------------- #
+# Phase 15: the reference's remaining jit sites, captured
+# --------------------------------------------------------------------------- #
+# name: (module, attribute of its graphs.captured callable, the JAX jit)
+JIT_SITES = {
+    "loop_search_global": ("asdslam_torch.loop.loop_closing", "_search_global",
+                           "asdslam_tpu/ops/match.py:263"),
+    "loop_sim3": ("asdslam_torch.loop.loop_closing", "_sim3",
+                  "asdslam_tpu/estimators/sim3_horn.py:64, :139"),
+    "loop_guided": ("asdslam_torch.loop.loop_closing", "_guided_counts",
+                    "asdslam_tpu/frontend/visibility.py:19, asdslam_tpu/ops/match.py:199"),
+    "loop_project_search": ("asdslam_torch.loop.loop_closing", "_project_search",
+                            "asdslam_tpu/frontend/visibility.py:19, "
+                            "asdslam_tpu/ops/match.py:199"),
+    "triangulate_neighbors": ("asdslam_torch.backend.local_mapping", "_triangulate",
+                              "asdslam_tpu/backend/mapping_kernels.py:26"),
+    "fuse_pairs": ("asdslam_torch.backend.local_mapping", "_fuse",
+                   "asdslam_tpu/backend/mapping_kernels.py:80"),
+    "search_window": ("asdslam_torch.frontend.tracking", "_search_window",
+                      "asdslam_tpu/ops/match.py:174"),
+    "initialize_two_view": ("asdslam_torch.frontend.tracking", "_two_view",
+                            "asdslam_tpu/estimators/twoview.py:270"),
+    "track_search_global": ("asdslam_torch.frontend.tracking", "_search_global",
+                            "asdslam_tpu/ops/match.py:263"),
+    "ransac_pnp": ("asdslam_torch.frontend.tracking", "_ransac_pnp",
+                   "asdslam_tpu/estimators/pnp.py:60"),
+    "pose_only_optimize": ("asdslam_torch.frontend.tracking", "_pose_only",
+                           "asdslam_tpu/backend/ba.py:101"),
+    "motion_search": ("asdslam_torch.frontend.tracking", "_motion_search",
+                      "asdslam_tpu/ops/match.py:199"),
+    "project_search": ("asdslam_torch.frontend.tracking", "_project_search",
+                       "asdslam_tpu/frontend/visibility.py:19, asdslam_tpu/ops/match.py:199"),
+    "bow_descend": ("asdslam_torch.loop.vocab", "_descend", "asdslam_tpu/loop/vocab.py:85"),
+}
+LOOP_FUNNEL = ("loop_search_global", "loop_sim3", "loop_guided", "loop_project_search")
+
+
+def site_owners(names):
+    """(module, attribute) of each JIT_SITES name."""
+    import importlib
+
+    return [(importlib.import_module(JIT_SITES[n][0]), JIT_SITES[n][1]) for n in names]
+
+
+def jit_site(name):
+    """The captured callable of a JIT_SITES name."""
+    (module, attr), = site_owners([name])
+    site = getattr(module, attr)
+    return getattr(site, "captured", site)  # under SiteLog: the wrapped site
+
+
+def to_device(x, device):
+    """``x`` (tensors in tuples, named tuples, lists and dicts) with its
+    tensors on ``device``."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(to_device(v, device) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_device(v, device) for v in x)
+    if isinstance(x, dict):
+        return {k: to_device(v, device) for k, v in x.items()}
+    return x
+
+
+def clone_tree(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(clone_tree(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(clone_tree(v) for v in x)
+    if isinstance(x, dict):
+        return {k: clone_tree(v) for k, v in x.items()}
+    return x
+
+
+def check_site(name, site, args, kwargs):
+    """One capture site on its inputs: ``.eager``, then the site three times
+    (on a new key: the warm-up, the capture with its first replay, a
+    replay), each bit for bit the eager result.  Returns the host ms of the
+    eager call and of each call with what it did."""
+    from asdslam_torch.utils import graphs
+
+    want, eager_ms = timed_call(lambda: site.eager(*args, **kwargs))
+    calls = []
+    for i in range(3):
+        got, ms = timed_call(lambda: site(*args, **kwargs))
+        kind = graphs.last_call()
+        if not tree_same_bits(got, want):
+            bad = [n for n, (x, y) in enumerate(zip(tree_leaves(got), tree_leaves(want)))
+                   if not same_bits(x, y)]
+            raise AssertionError(f"15a: {name}'s call {i + 1} ({kind}) differs from .eager in "
+                                 f"output leaves {bad}")
+        calls.append((kind, ms))
+    return dict(eager_ms=eager_ms, calls=calls)
+
+
+class SiteLog:
+    """``with SiteLog() as log:`` wraps every JIT_SITES callable: each call's
+    host ms (the calling thread's stream synchronised before and after, so
+    they hold the card's work too), what it did (``graphs.last_call()``),
+    its start and end on the host clock, its thread and the label
+    ``log.phase``, and the call's key but for the stream; the ms only for
+    the sites named in ``log.timed`` (the others are not synchronised: a
+    synchronisation in the tracker's thread would stall its pipeline); while
+    ``log.keep`` the arguments of each site's first call (cloned at the
+    call).  LoopCloser's Sim3 stage a candidate
+    (``_compute_sim3_and_correct``, with kf, cand and the verdict), its
+    essential graph and its global BA are timed the same way."""
+
+    LOOP_METHODS = ("_compute_sim3_and_correct", "_optimize_essential_graph", "_global_ba")
+
+    def __init__(self):
+        self.calls, self.loop, self.args = [], [], {}
+        self.phase, self.keep, self.timed = None, False, ()
+        self._lock = threading.Lock()
+        self._saved = []
+
+    def _site_wrapper(self, name, site):
+        import torch
+        from asdslam_torch.utils import graphs
+
+        def wrapper(*a, **kw):
+            if self.keep and name not in self.args:
+                self.args[name] = (clone_tree(a), clone_tree(kw))
+            shape = hash(graphs._flatten((a, kw), []))  # the key but for the stream
+            timed = name in self.timed
+            if timed:
+                stream = torch.cuda.current_stream()
+                stream.synchronize()
+            t0 = time.perf_counter()
+            out = site(*a, **kw)
+            if timed:
+                stream.synchronize()
+            t1 = time.perf_counter()
+            with self._lock:
+                self.calls.append(dict(site=name, kind=graphs.last_call(), shape=shape,
+                                       ms=(t1 - t0) * 1e3 if timed else None, t0=t0, t1=t1,
+                                       thread=threading.get_ident(), phase=self.phase))
+            return out
+        wrapper.eager, wrapper.captured = site.eager, site
+        return wrapper
+
+    def _loop_wrapper(self, name, fn):
+        def wrapper(closer, *a, **kw):
+            t0 = time.perf_counter()
+            out = fn(closer, *a, **kw)
+            with self._lock:
+                self.loop.append(dict(method=name, t0=t0, t1=time.perf_counter(),
+                                      thread=threading.get_ident(), phase=self.phase,
+                                      args=[int(x) for x in a[:2]] if name == self.LOOP_METHODS[0]
+                                      else None, accepted=out if name == self.LOOP_METHODS[0]
+                                      else None))
+            return out
+        return wrapper
+
+    def __enter__(self):
+        from asdslam_torch.loop.loop_closing import LoopCloser
+
+        for name, (m, a) in zip(JIT_SITES, site_owners(JIT_SITES)):
+            site = getattr(m, a)
+            self._saved.append((m, a, site))
+            setattr(m, a, self._site_wrapper(name, site))
+        for name in self.LOOP_METHODS:
+            fn = getattr(LoopCloser, name)
+            self._saved.append((LoopCloser, name, fn))
+            setattr(LoopCloser, name, self._loop_wrapper(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, value in self._saved:
+            setattr(owner, name, value)
+        self._saved = []
+
+    def first_calls(self):
+        """Per site: the first call in the process (its phase, what it did,
+        ms), the warm-ups, captures and replays (count, ms)."""
+        out = {}
+        for name in JIT_SITES:
+            calls = [c for c in self.calls if c["site"] == name and c["ms"] is not None]
+            if not calls:
+                continue
+            by = {k: [c["ms"] for c in calls if c["kind"] == k]
+                  for k in ("warm-up", "capture", "replay")}
+            out[name] = dict(first=dict(phase=calls[0]["phase"], kind=calls[0]["kind"],
+                                        ms=calls[0]["ms"]),
+                             warm_ups=len(by["warm-up"]), warm_up_ms_max=max(by["warm-up"],
+                                                                              default=None),
+                             captures=len(by["capture"]), capture_ms=by["capture"],
+                             replays=len(by["replay"]),
+                             replay_ms_median=float(np.median(by["replay"]))
+                             if by["replay"] else None,
+                             replay_ms_total=float(np.sum(by["replay"])))
+        return out
+
+    def first_loop(self, phase):
+        """Where the process's first loop spent its time: every Sim3 stage
+        (one a candidate) of run ``phase`` up to and including the first
+        accepted one, with the site calls made inside each (ms by site and
+        what they did), its essential graph and global BA, and the rest
+        (the stage's host work and its fetches)."""
+        stages = []
+        for st in (c for c in self.loop if c["phase"] == phase
+                   and c["method"] == self.LOOP_METHODS[0]):
+            inside = [c for c in self.calls if c["thread"] == st["thread"] and c["ms"] is not None
+                      and st["t0"] <= c["t0"] and c["t1"] <= st["t1"]]
+            sites = {}
+            for c in inside:
+                key = f"{c['site']} ({c['kind']})"
+                sites[key] = sites.get(key, 0.0) + c["ms"]
+            children = {c["method"]: (c["t1"] - c["t0"]) * 1e3 for c in self.loop
+                        if c["thread"] == st["thread"] and c["method"] != self.LOOP_METHODS[0]
+                        and st["t0"] <= c["t0"] and c["t1"] <= st["t1"]}
+            ms = (st["t1"] - st["t0"]) * 1e3
+            stages.append(dict(kf=st["args"][0], cand=st["args"][1], accepted=st["accepted"],
+                               ms=ms, sites_ms=sites, children_ms=children,
+                               rest_ms=ms - sum(sites.values()) - sum(children.values())))
+            if st["accepted"]:
+                break
+        return stages
+
+
+def record_motion_search(system, frame_u8, device):
+    """The staged motion model's arguments (``Tracker._track_motion_model``,
+    which the fused step's failed gates fall back to) on ``frame_u8`` from
+    the state ``system``'s tracker ended in: {"motion_search": (args,
+    kwargs)}."""
+    import torch
+
+    tr = system.tracker
+    if tr.velocity is None:
+        tr.velocity = np.array([1.0, 0, 0, 0, 0, 0, 0], np.float32)
+    feat = tr.extract(torch.as_tensor(frame_u8).to(device).float() / 255.0)
+    with SiteLog() as extra:
+        extra.keep = True
+        tr._track_motion_model(feat)
+    return {k: v for k, v in extra.args.items() if k == "motion_search"}
+
+
+def padded_slot_ms(name, site, args, kwargs):
+    """The device time of the keyframe pass's padded slots: the captured
+    call's replay (CUDA events) on its recorded padded inputs against the
+    same inputs cut to the live slots (a graph of its own)."""
+    import torch
+
+    if name == "triangulate_neighbors":
+        live = int(args[7].any(dim=1).nonzero().max()) + 1  # nb_free: the padded slots last
+        cut = tuple(a[:live] if i in (4, 5, 6) else a for i, a in enumerate(args))
+        cut = cut[:7] + (cut[7][:live], cut[8][:live], cut[9][:live]) + cut[10:]
+        cut_kwargs = kwargs
+        slots = (live, len(args[4]))
+    else:
+        live = int(args[5].any(dim=1).nonzero().max()) + 1  # mp_valid: the padded pairs last
+        cut = args[:7] + tuple(a[:live] for a in args[7:11]) + args[11:]
+        cut_kwargs = dict(kwargs, n_live=live)
+        slots = (live, args[5].shape[0])
+    out = {}
+    for form, a, kw in (("padded", args, kwargs), ("live", cut, cut_kwargs)):
+        for _ in range(3):  # warm-up, capture, replay
+            site(*a, **kw)
+        torch.cuda.synchronize()
+        out[form] = time_ms(lambda: site(*a, **kw), 10)
+    return dict(live_slots=slots[0], slots=slots[1], padded_ms=out["padded"],
+                live_ms=out["live"], padded_slots_ms=out["padded"] - out["live"])
+
+
+def phase15(cfg, weights, device, card, sites, captured_runs):
+    """15a-15e (module docstring); ``sites`` is the SiteLog of phases 5-8,
+    ``captured_runs`` phase 6's first and last runs.  Returns the numbers
+    for the JSON line."""
+    import torch
+    from asdslam_torch.utils import graphs
+
+    captured_first, captured_again = captured_runs
+    out = {}
+    frames_u8, _ = render_loop(cfg, device)
+    # ---- 15a: every site on its recorded inputs, captured against eager -- #
+    if "motion_search" not in sites.args:  # no fused step failed its gates
+        sites.args.update(record_motion_search(captured_first["system"], frames_u8[N_LOOP],
+                                               device))
+    missing = sorted(set(JIT_SITES) - set(sites.args))
+    if missing:
+        raise AssertionError(f"15a: phases 6-8 never called {missing}")
+    process = sites.first_calls()
+    checks = {}
+    for name, (args, kwargs) in sites.args.items():
+        site = jit_site(name)
+        checks[name] = check_site(name, site, args, kwargs)
+        checks[name]["in_process"] = process.get(name)
+    for name, c in checks.items():
+        p = c["in_process"]
+        log(f"15a {name} ({JIT_SITES[name][2]}): captured bitwise equal to .eager on the "
+            f"inputs of its first call in phases 6-8; host ms here eager {c['eager_ms']:.2f}, "
+            + ", ".join(f"{k} {ms:.2f}" for k, ms in c["calls"])
+            + (f"; in phases 5-8: first call {p['first']['ms']:.1f} ({p['first']['kind']}, "
+               f"{p['first']['phase']}), warm-ups {p['warm_ups']} (the longest "
+               f"{p['warm_up_ms_max'] or 0:.1f}), captures {p['captures']} "
+               f"({', '.join(f'{x:.1f}' for x in p['capture_ms'])}), replays {p['replays']} "
+               f"(median {p['replay_ms_median'] or 0:.2f}, total {p['replay_ms_total']:.1f})"
+               if p else "") + f" [{card}]")
+    # the sites' graphs: keys now, the shapes (keys but for the stream) that
+    # phase 6's three runs called (one configuration), calls by what they
+    # did in phase 6, pools
+    graphs_by_site = {}
+    for name in JIT_SITES:
+        site = jit_site(name)
+        stats = site.stats()
+        in6 = [c for c in sites.calls if c["site"] == name and c["phase"].startswith("6")]
+        graphs_by_site[name] = dict(
+            keys=len(site._entries), shapes_phase6=len({c["shape"] for c in in6}),
+            calls_phase6={k: sum(c["kind"] == k for c in in6)
+                          for k in ("warm-up", "capture", "replay")},
+            pool_bytes=[s["pool_bytes"] for s in stats],
+            replays=sum(s["replays"] for s in stats))
+    log("15a the sites' graphs (keys, shapes in phase 6, phase 6's warm-ups / captures / "
+        "replays, pool bytes a graph): "
+        + ", ".join(f"{n} {g['keys']}, {g['shapes_phase6']}, "
+                    + " / ".join(str(v) for v in g["calls_phase6"].values())
+                    + f", {g['pool_bytes']}" for n, g in graphs_by_site.items()) + f" [{card}]")
+    if graphs_by_site["triangulate_neighbors"]["shapes_phase6"] != 1 \
+            or not 1 <= graphs_by_site["fuse_pairs"]["shapes_phase6"] <= 4:
+        raise AssertionError(f"15a: the keyframe pass's shapes in phase 6: {graphs_by_site}")
+    if any(g["keys"] > graphs.MAX_GRAPHS for g in graphs_by_site.values()):
+        raise AssertionError(f"15a: a site over {graphs.MAX_GRAPHS} keys: {graphs_by_site}")
+    out["15a"] = dict(checks=checks, graphs=graphs_by_site)
+    # ---- 15b: where the first loop's Sim3 stage went ------------------------ #
+    stages = sites.first_loop("6 first")
+    if not stages or not stages[-1]["accepted"]:
+        raise AssertionError(f"15b: no accepted loop in phase 6's first run: {stages}")
+    total = {}
+    for st in stages:
+        for k, v in list(st["sites_ms"].items()) + list(st["children_ms"].items()):
+            total[k] = total.get(k, 0.0) + v
+        total["the rest (host work, fetches)"] = total.get(
+            "the rest (host work, fetches)", 0.0) + st["rest_ms"]
+    out["15b"] = dict(stages=stages, total_ms=sum(st["ms"] for st in stages), by_part_ms=total)
+    log(f"15b phase 6's first run: {len(stages)} Sim3 stages up to its first loop (kf "
+        f"{stages[-1]['kf']}, cand {stages[-1]['cand']}), {out['15b']['total_ms']:.1f} ms; by "
+        "part (ms): " + ", ".join(f"{k} {v:.1f}" for k, v in sorted(total.items(),
+                                                                      key=lambda kv: -kv[1]))
+        + f" [{card}]")
+    # ---- 15c: the keyframe pass's padded slots ------------------------------ #
+    out["15c"] = {}
+    for name in ("triangulate_neighbors", "fuse_pairs"):
+        args, kwargs = sites.args[name]
+        r = out["15c"][name] = padded_slot_ms(name, jit_site(name), args, kwargs)
+        log(f"15c {name}: the replay on its {r['slots']} slots {r['padded_ms']:.3f} ms against "
+            f"{r['live_ms']:.3f} ms on its {r['live_slots']} live ones: the padded slots "
+            f"{r['padded_slots_ms']:.3f} ms of the card a keyframe (CUDA events) [{card}]")
+    # ---- 15d: phase 6 with the new sites eager ------------------------------ #
+    with eager_sites(list(JIT_SITES)):
+        eager_run = run_default(cfg, frames_u8, weights, device)
+    a, b = captured_first["system"], eager_run["system"]
+    for what, ta, tb in (("frame", a.frame_trajectory(), b.frame_trajectory()),
+                         ("keyframe", a.keyframe_trajectory(), b.keyframe_trajectory())):
+        if len(ta) != len(tb) or any(fa != fb or pa.tobytes() != pb.tobytes()
+                                     for (fa, pa), (fb, pb) in zip(ta, tb)):
+            raise AssertionError(f"15d: the {what} trajectory with the sites eager differs from "
+                                 "the captured run's")
+    if a.loop_closer.accepted_log != b.loop_closer.accepted_log:
+        raise AssertionError(f"15d: loops {b.loop_closer.accepted_log} with the sites eager, "
+                             f"{a.loop_closer.accepted_log} captured")
+    spans = {k: span_stats(eager_run["system"].tracer, k)
+             for k in ("join_mapping", "mapping", "loop_closing", "loop_closing/sim3",
+                       "sim3/essential_graph", "sim3/gba", "create_kf")}
+    ms, is_kf = eager_run["ms"], eager_run["is_kf"]
+    out["15d"] = dict(fps_sites_eager=N_LOOP / eager_run["wall_s"],
+                      fps_captured_first=N_LOOP / captured_first["wall_s"],
+                      fps_captured_again=N_LOOP / captured_again["wall_s"],
+                      loops=b.loop_closer.accepted_log,
+                      keyframe_call_ms=[round(float(x), 1) for x in ms[is_kf]],
+                      captured_again_keyframe_call_ms=[
+                          round(float(x), 1)
+                          for x in captured_again["ms"][captured_again["is_kf"]]],
+                      spans_calls_total_ms=spans)
+    log(f"15d phase 6 with the new sites eager: frame and keyframe trajectories and loops "
+        f"{b.loop_closer.accepted_log} bitwise the captured first run's; frames/s "
+        f"{out['15d']['fps_sites_eager']:.3f} eager against {out['15d']['fps_captured_first']:.3f}"
+        f" / {out['15d']['fps_captured_again']:.3f} captured (first / last run); keyframe calls "
+        f"{out['15d']['keyframe_call_ms']} ms (captured, last run: "
+        f"{out['15d']['captured_again_keyframe_call_ms']}); spans (calls, total ms): "
+        + ", ".join(f"{k} {c} / {t:.1f}" for k, (c, t) in spans.items() if c) + f" [{card}]")
+    # ---- 15e: the first Sim3 call of a process, part by part --------------- #
+    out["15e"] = first_sim3_calls()
+    log("15e a fresh process's first and second calls of the Sim3 program's parts (host ms, "
+        "synchronised): " + ", ".join(f"{k} {v[0]:.1f} / {v[1]:.1f}"
+                                       for k, v in out["15e"].items()) + f" [{card}]")
+    torch.cuda.synchronize()
+    return out
+
+
+def first_sim3_calls():
+    """``python3 chip_smoke.py --sim3-first-calls`` in a fresh process: the
+    host ms (synchronised) of the first and second call of each part of the
+    loop funnel's Sim3 program in order, on a synthetic problem of
+    n_features matches (seed 0): the Horn fit's Jacobi sweeps over 300
+    hypotheses, the whole RANSAC, ``torch.func.jacfwd`` of a small
+    function, the Gauss-Newton refine.  Returns {part: (first, second)}."""
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--sim3-first-calls"],
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"15e: the child failed: {res.stderr[-2000:]}")
+    return {k: tuple(v) for k, v in json.loads(res.stdout.splitlines()[-1]).items()}
+
+
+def sim3_first_calls_child():
+    """The child of ``first_sim3_calls``: prints one JSON line."""
+    import torch
+    from torch.func import jacfwd
+    from asdslam_torch.config import SlamConfig
+    from asdslam_torch.estimators import linalg, sim3_horn
+    from asdslam_torch.geometry import se3
+
+    dev, cfg = "cuda", SlamConfig()
+    n, gen = cfg.n_features, torch.Generator().manual_seed(0)
+    P1 = torch.rand(n, 3, generator=gen) * torch.tensor([4.0, 3.0, 6.0]) + torch.tensor(
+        [-2.0, -1.5, 4.0])
+    R = se3.so3_exp(torch.tensor([[0.02, -0.05, 0.01]]))[0]
+    P2 = 1.3 * P1 @ R.T + torch.tensor([0.3, -0.1, 0.2])
+    K = torch.tensor([[cfg.fx, 0, cfg.cx], [0, cfg.fy, cfg.cy], [0, 0, 1.0]])
+
+    def proj(P):
+        return torch.stack([K[0, 0] * P[:, 0] / P[:, 2] + K[0, 2],
+                            K[1, 1] * P[:, 1] / P[:, 2] + K[1, 2]], 1)
+    g = torch.rand(cfg.sim3_ransac_iters, n, generator=gen)
+    ones = torch.ones(n)
+    args = [x.to(dev) for x in (g, P1, P2, proj(P1), proj(P2), ones > 0, K, 9.21 * ones,
+                                9.21 * ones)]
+    sym = torch.rand(cfg.sim3_ransac_iters, 4, 4, generator=gen).to(dev)
+    sym = sym + sym.transpose(1, 2)
+    parts = {
+        "jacobi_eigh 300x4x4": lambda: linalg.jacobi_eigh(sym),
+        "ransac_sim3": lambda: sim3_horn.ransac_sim3(*args, min_inliers=20),
+        "jacfwd of x * x": lambda: jacfwd(lambda x: x * x)(args[1][0]),
+        "refine_sim3": lambda: sim3_horn.refine_sim3(
+            torch.ones((), device=dev), torch.eye(3, device=dev), torch.zeros(3, device=dev),
+            *args[1:5], args[5], args[6], args[7], args[8]),
+    }
+    out = {}
+    for name, fn in parts.items():
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = times
+    print(json.dumps(out))
+    return 0
 
 
 def main():
@@ -3496,8 +3998,11 @@ def main():
     weights = load_weights(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                         "asdnet_weights.pkl"))
     sync_cfg = cfg.replace(pipelined_tracking=False, async_mapping=False)
+    sites = SiteLog().__enter__()  # phase 15's record of the capture sites, phases 5-8
+    sites.phase, sites.timed = "5", set(JIT_SITES)
     first = run_system(sync_cfg, frames_u8, weights, device, record_fuse=True)
     second = run_system(sync_cfg, frames_u8, weights, device)
+    sites.timed = ()
     ate = check_system(first, second, poses.cpu().numpy(), sync_cfg)
     launches_system = first["launches"]
     if not first["fuse_calls"]:
@@ -3538,15 +4043,21 @@ def main():
 
     stamp("phase 5")
     # ---- 6. the default configuration -------------------------------------- #
-    default, loop_system, lm_calls = phase6(cfg, weights, device, card, errs, k1_cases)
+    default, loop_system, lm_calls, default_runs = phase6(cfg, weights, device, card, errs,
+                                                         k1_cases, sites)
     stamp("phase 6")
+    sites.phase = "7"
     # ---- 7. localization mode, persistence, EuRoC's lens ------------------- #
     localization = phase7(cfg, second["system"], frames_u8, weights, device, card, errs,
                           k1_cases)
     launches_loc = sum(localization[k]["launches"] for k in ("7a", "7b", "7c"))
     stamp("phase 7")
+    sites.phase = "8"
     # ---- 8. the entry points ------------------------------------------------ #
-    entry = phase8(cfg, device, card, errs, k1_cases)
+    try:
+        entry = phase8(cfg, device, card, errs, k1_cases)
+    finally:
+        sites.__exit__()
     launches_entry = sum(entry[k].get("launches", 0) for k in entry)
     stamp("phase 8")
     # ---- 9. ASDNet training ------------------------------------------------ #
@@ -3583,6 +4094,12 @@ def main():
                       device, card)
     capture["seconds"] = time.perf_counter() - t0
     stamp("phase 14")
+    # ---- 15. the reference's remaining jit sites, captured ----------------- #
+    t0 = time.perf_counter()
+    jit_sites = phase15(cfg, weights, device, card, sites, default_runs)
+    jit_sites["seconds"] = time.perf_counter() - t0
+    del default_runs
+    stamp("phase 15")
 
     # K1 by shape.  Everything that reads a clock comes before the first use
     # of torch.profiler: once it has traced, later launches of the process
@@ -3682,7 +4199,7 @@ def main():
                              "captured_chain": capture["14a"]["launches"]},
         "default_config": default, "localization": localization, "entry_points": entry,
         "training": training, "orb_path": orb_path, "phase12": tools, "phase13": faults,
-        "phase14": capture,
+        "phase14": capture, "phase15": jit_sites,
         "system": {"frames": N_SYSTEM, "fps": system_fps,
                    "frame_ms_median": float(np.median(steady)),
                    "keyframe_frame_ms": [float(x) for x in frame_ms[is_kf]],
@@ -3753,9 +4270,60 @@ def phase14_alone():
     return 0
 
 
+def phase15_alone():
+    """``python3 chip_smoke.py --phase15``: phase 15 without the other
+    phases, for a change to a capture site (~5 min): phase 5's synchronous
+    System twice, phase 6's default configuration twice (its first run
+    recorded), phase 7a's localization on phase 5's map with its
+    relocalization checks, then phase 15.  Prints one JSON line; exit code 0
+    when every check passed."""
+    import tempfile
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from asdslam_torch import kernels
+    from asdslam_torch.config import SlamConfig
+    from asdslam_torch.models.asdnet import load_weights
+
+    device, card = "cuda", card_line()
+    kernels.build()
+    log(f"card: {card}")
+    cfg = SlamConfig()
+    frames_u8 = build_tracking(cfg, device)[2]
+    weights = load_weights(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                        "asdnet_weights.pkl"))
+    sync_cfg = cfg.replace(pipelined_tracking=False, async_mapping=False)
+    with SiteLog() as sites:
+        sites.phase, sites.timed = "5", set(JIT_SITES)
+        run_system(sync_cfg, frames_u8, weights, device)
+        mapped = run_system(sync_cfg, frames_u8, weights, device)["system"]
+        sites.phase, sites.keep, sites.timed = "6 first", True, set(LOOP_FUNNEL) | {"bow_descend"}
+        loop_frames = render_loop(cfg, device)[0]
+        first = run_default(cfg, loop_frames, weights, device)
+        sites.phase, sites.timed = "6 again", ()
+        again = run_default(cfg, loop_frames, weights, device)
+        sites.phase = "7"
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "phase5.map")
+            mapped.save_map(path)
+            loc = load_localization(cfg, path, weights, device)[0]
+            drive(loc, frames_u8, range(N_SYSTEM))
+            reloc_acceptance(loc, frames_u8, device)
+    out = phase15(cfg, weights, device, card, sites, (first, again))
+    log(json.dumps({"phase15": out, "card": card}, default=str))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multihost-child"]:
         sys.exit(multihost_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--phase14"]:
         sys.exit(phase14_alone())
+    if sys.argv[1:2] == ["--phase15"]:
+        sys.exit(phase15_alone())
+    if sys.argv[1:2] == ["--sim3-first-calls"]:
+        sys.exit(sim3_first_calls_child())
     sys.exit(main())
