@@ -31,6 +31,7 @@ import torch
 
 from asdslam_torch.estimators.linalg import chol_solve_small, inv3x3
 from asdslam_torch.geometry import se3
+from asdslam_torch.utils import batching
 from asdslam_torch.utils import graphs
 
 CHI2_MONO = 5.991
@@ -64,7 +65,7 @@ def _project_residuals(poses7, points, obs: Obs, K):
     cx, cy = K[0, 2], K[1, 2]
     R, t = se3.pose_unpack(poses7[obs.cam_idx])  # [O, 3, 3], [O, 3]
     X = points[obs.pt_idx]
-    xc = (R @ X[:, :, None])[:, :, 0] + t
+    xc = batching.matmul(R, X[:, :, None])[:, :, 0] + t
     z = xc[:, 2]
     zs = torch.where(torch.abs(z) < 1e-6, torch.full_like(z, 1e-6), z)
     u = fx * xc[:, 0] / zs + cx
@@ -83,7 +84,7 @@ def _project_residuals(poses7, points, obs: Obs, K):
     # d(xc)/d(xi): left-mult exp(xi) T => dxc/domega = -[xc]x, dxc/dv = I
     eye = torch.eye(3, dtype=xc.dtype, device=xc.device).expand(xc.shape[0], 3, 3)
     Jxi = torch.cat([-se3.hat(xc), eye], dim=2)  # [O, 3, 6]
-    return r, Jproj @ Jxi, Jproj @ R, z
+    return r, batching.matmul(Jproj, Jxi), batching.matmul(Jproj, R), z
 
 
 def _huber_weight(chi2, delta2):
@@ -124,7 +125,7 @@ def pose_only_optimize(
         # Huber cost rho(chi2)
         c = torch.where(chi2 <= delta2, chi2,
                         2.0 * torch.sqrt(delta2 * torch.clamp(chi2, min=1e-12)) - delta2)
-        return torch.sum(torch.where(inliers, c, torch.zeros_like(c)))
+        return batching.sum(torch.where(inliers, c, torch.zeros_like(c)))
 
     def lm_round(pose, inliers, use_huber):
         lam = torch.full((), 1e-3, dtype=pose.dtype, device=dev)  # no host copy
@@ -134,8 +135,8 @@ def pose_only_optimize(
             chi2 = torch.sum(r * r, dim=1) * inv_sigma2
             w_h = _huber_weight(chi2, delta2) if use_huber else torch.ones_like(chi2)
             w = inv_sigma2 * w_h * inliers.to(r.dtype)
-            H = torch.einsum("oki,o,okj->ij", Jc, w, Jc)
-            g = torch.einsum("oki,o,ok->i", Jc, w, r)
+            H = batching.einsum("oki,o,okj->ij", Jc, w, Jc)
+            g = batching.einsum("oki,o,ok->i", Jc, w, r)
             Hd = H + lam * torch.diag(torch.diagonal(H)) + 1e-9 * eye6
             cand = se3.pose_retract(pose, -chol_solve_small(Hd, g))
             new_cost = cost_fn(cand, inliers)

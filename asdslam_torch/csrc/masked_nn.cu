@@ -25,20 +25,21 @@
 // not either bound.
 //
 // Design (three launches from one C call, no host synchronisation):
-//  1. order_kernel, one block per side: a counting sort of the rows of A and
-//     the columns of B by the Morton code of their 32-px cell, with entries
-//     that can never pass the gate (invalid, NaN position) keyed last.  The
-//     binning uses shared-memory atomics (per entry; per warp for the inert
-//     key, which may hold most entries), so the order inside a cell may
-//     change from run to run; nothing below depends on it.
-//  2. gather_kernel, one block per 64-entry tile: the descriptors in sorted
-//     order as bf16 (rounded once per call, as the TPU wrapper does), the
-//     f32 norms of the unrounded values, each entry's position, level and
-//     validity, and a summary per tile: the box of uv (for rows, widened by
-//     the window radius and a margin for f32 rounding), the level range and
-//     the count of entries that can pass the gate.
-//  3. search_kernel, one warpgroup per (64-row tile, column split): skips
-//     every column tile whose summary cannot meet the row tile's (boxes
+//  1. order_kernel, one block per side and problem: a counting sort of the
+//     rows of A and the columns of B by the Morton code of their 32-px cell,
+//     with entries that can never pass the gate (invalid, NaN position)
+//     keyed last.  The binning uses shared-memory atomics (per entry; per
+//     warp for the inert key, which may hold most entries), so the order
+//     inside a cell may change from run to run; nothing below depends on it.
+//  2. gather_kernel, one block per 64-entry tile and problem: the
+//     descriptors in sorted order as bf16 (rounded once per call, as the TPU
+//     wrapper does), the f32 norms of the unrounded values, each entry's
+//     position, level and validity, and a summary per tile: the box of uv
+//     (for rows, widened by the window radius and a margin for f32
+//     rounding), the level range and the count of entries that can pass the
+//     gate.
+//  3. search_kernel, one warpgroup per (64-row tile, column split, problem):
+//     skips every column tile whose summary cannot meet the row tile's (boxes
 //     apart, levels out of window, or nothing valid), stages each live B
 //     tile as bf16 into a two-stage cp.async ring in the 128-byte-swizzled
 //     layout (D / 64 slabs of 64 columns), runs the dot as D / 16 wgmma
@@ -56,6 +57,14 @@
 // index), so it does not depend on the order in which pairs are visited,
 // and a culled tile (which holds no gated-in pair) needs no work: that is
 // what makes the culling and the reordering exact.
+//
+// A batch of B independent problems of one shape (the reference's
+// jax.vmap of the search, a leading grid axis of B) is one launch of the
+// same three kernels: the last grid axis selects the problem b, whose
+// inputs and outputs are the b-th slices of arrays with a leading B axis and
+// whose scratch is the b-th of B consecutive blocks of one problem's layout.  A
+// problem's blocks run the same arithmetic in the same order whatever B is,
+// so its results are the same bits as its own launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -132,17 +141,49 @@ __device__ __forceinline__ int sort_key(const SideIn& s, int e) {
   return (int)(spread6(cell_of(x)) | (spread6(cell_of(y)) << 1));
 }
 
-// 1. Counting sort by cell key, one block per side.  The keys of the first
-// KEY_CAP entries are computed once (their loads issued together) and kept
-// in shared memory; any further ones are recomputed where they are needed.
+// Problem `p` of a batch: the p-th slices of the inputs (D floats a
+// descriptor), and a pointer moved `bytes` on, into the p-th scratch block.
+__device__ __forceinline__ SideIn problem_in(SideIn s, int p, int D) {
+  const size_t e = (size_t)p * s.count;
+  s.desc += e * D;
+  s.uv += e * 2;
+  if (s.rad2 != nullptr) s.rad2 += e;
+  s.valid += e;
+  s.lvl += e;
+  return s;
+}
+
+template <typename T>
+__device__ __forceinline__ T* shifted(T* ptr, long long bytes) {
+  return ptr == nullptr ? ptr : (T*)((const char*)ptr + bytes);
+}
+
+__device__ __forceinline__ SideOut problem_out(SideOut o, long long bytes) {
+  o.perm = shifted(o.perm, bytes);
+  o.d16 = shifted(o.d16, bytes);
+  o.info = shifted(o.info, bytes);
+  o.rad2 = shifted(o.rad2, bytes);
+  o.idx = shifted(o.idx, bytes);
+  o.summary = shifted(o.summary, bytes);
+  return o;
+}
+
+// 1. Counting sort by cell key, one block per side (grid x) and problem
+// (grid y).  The keys of the first KEY_CAP entries are computed once (their
+// loads issued together) and kept in shared memory; any further ones are
+// recomputed where they are needed.
 __global__ void __launch_bounds__(SORT_THREADS)
 order_kernel(SideIn a, SideIn b, int32_t* perm_a, int np_, int32_t* perm_b, int mp,
-             int* done) {
+             int* done, long long block) {
   __shared__ int hist[NKEYS];
   __shared__ int wsum[SORT_THREADS / 32];
   __shared__ uint16_t keys[KEY_CAP];
-  const SideIn s = blockIdx.x == 0 ? a : b;
-  int32_t* perm = blockIdx.x == 0 ? perm_a : perm_b;
+  const int prob = blockIdx.y;
+  const long long shift = prob * block;
+  // only the positions are read here: the descriptor stride does not matter
+  const SideIn s = problem_in(blockIdx.x == 0 ? a : b, prob, 0);
+  int32_t* perm = shifted(blockIdx.x == 0 ? perm_a : perm_b, shift);
+  done = shifted(done, shift);
   const int padded = blockIdx.x == 0 ? np_ : mp;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int cached = min(s.count, KEY_CAP);
@@ -232,18 +273,19 @@ __device__ __forceinline__ float4 row_box(float x, float y, float r2) {
 }
 
 // 2. Sorted bf16 descriptors, entry info and tile summaries; one block per
-// 64-entry tile, row tiles first.  Lane l of a warp holds float4s l, l + 32,
-// ... of each of its entries' rows (D / 128 of them).
+// 64-entry tile (grid x, row tiles first) and problem (grid y).  Lane l of a
+// warp holds float4s l, l + 32, ... of each of its entries' rows (D / 128 of
+// them).
 template <int D>
 __global__ void __launch_bounds__(GATHER_THREADS)
-gather_kernel(SideIn a, SideOut oa, SideIn b, SideOut ob) {
+gather_kernel(SideIn a, SideOut oa, SideIn b, SideOut ob, long long block) {
   __shared__ float4 ebox[TILE];
   __shared__ int elvl[TILE];
   __shared__ int epass[TILE];
   const int row_tiles = oa.padded / TILE;
   const bool rows = (int)blockIdx.x < row_tiles;
-  const SideIn s = rows ? a : b;
-  const SideOut o = rows ? oa : ob;
+  const SideIn s = problem_in(rows ? a : b, blockIdx.y, D);
+  const SideOut o = problem_out(rows ? oa : ob, blockIdx.y * block);
   const int tile = rows ? blockIdx.x : blockIdx.x - row_tiles;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
@@ -490,10 +532,11 @@ __device__ __forceinline__ void search_tile(RowState& st, uint32_t sa, uint32_t 
   }
 }
 
-// 3. The culled search: one warpgroup per (row tile, column split).  The
-// split's column tiles are tested against the row tile 128 at a time, all
-// threads at once, into a list of live tiles in shared memory; the block
-// then walks the list with the next tile's copy in flight.
+// 3. The culled search: one warpgroup per (row tile, column split) of a
+// problem (grid z).  The split's column tiles are tested against the row
+// tile 128 at a time, all threads at once, into a list of live tiles in
+// shared memory; the block then walks the list with the next tile's copy in
+// flight.
 template <int D>
 __global__ void __launch_bounds__(SEARCH_THREADS)
 search_kernel(const __nv_bfloat16* __restrict__ a16, const float4* __restrict__ ainfo,
@@ -505,8 +548,29 @@ search_kernel(const __nv_bfloat16* __restrict__ a16, const float4* __restrict__ 
               float* __restrict__ pbest, int32_t* __restrict__ pidx, float* __restrict__ psec,
               int* __restrict__ done, const int32_t* __restrict__ perm_a,
               int32_t* __restrict__ out_idx, float* __restrict__ out_best,
-              float* __restrict__ out_second) {
+              float* __restrict__ out_second, long long block, int n) {
   constexpr int TILE_BYTES = Smem<D>::TILE_BYTES, STAGE_BYTES = Smem<D>::STAGE_BYTES;
+  {  // problem blockIdx.z: its scratch block and its rows of the outputs
+    const long long shift = blockIdx.z * block;
+    a16 = shifted(a16, shift);
+    ainfo = shifted(ainfo, shift);
+    arad = shifted(arad, shift);
+    aidx = shifted(aidx, shift);
+    rsum = shifted(rsum, shift);
+    b16 = shifted(b16, shift);
+    binfo = shifted(binfo, shift);
+    bidx = shifted(bidx, shift);
+    csum = shifted(csum, shift);
+    pbest = shifted(pbest, shift);
+    pidx = shifted(pidx, shift);
+    psec = shifted(psec, shift);
+    done = shifted(done, shift);
+    perm_a = shifted(perm_a, shift);
+    const size_t rows = (size_t)blockIdx.z * n;
+    out_idx += rows;
+    out_best += rows;
+    out_second += rows;
+  }
   extern __shared__ uint8_t smem_raw[];
   __shared__ int live[SEARCH_THREADS];
   __shared__ int warp_live[SEARCH_THREADS / 32];
@@ -648,12 +712,13 @@ long long scratch_layout(int n, int m, int d, long long* off) {
   return o;
 }
 
-// One launch of the three kernels at width D; returns the first cudaError_t.
+// One launch of the three kernels at width D over `batch` problems; returns
+// the first cudaError_t.
 template <int D>
 int launch(const float* desc_a, const float* desc_b, const uint8_t* valid_a,
            const uint8_t* valid_b, const float* uv_a, const float* uv_b, const float* rad2,
-           const int32_t* lvl_a, const int32_t* lvl_b, int n, int m, float dmin, float dmax,
-           void* scratch, int32_t* out_idx, float* out_best, float* out_second,
+           const int32_t* lvl_a, const int32_t* lvl_b, int n, int m, int batch, float dmin,
+           float dmax, void* scratch, int32_t* out_idx, float* out_best, float* out_second,
            cudaStream_t st) {
   // each instantiation of search_kernel needs its own opt-in above 48 KB
   static bool smem_attr_set = false;  // once per process and width
@@ -664,7 +729,7 @@ int launch(const float* desc_a, const float* desc_b, const uint8_t* valid_a,
     smem_attr_set = true;
   }
   long long off[N_FIELDS];
-  scratch_layout(n, m, D, off);
+  const long long block = scratch_layout(n, m, D, off);  // bytes of one problem's scratch
   char* b = static_cast<char*>(scratch);
   int32_t* perm_a = reinterpret_cast<int32_t*>(b + off[PERM_A]);
   int32_t* perm_b = reinterpret_cast<int32_t*>(b + off[PERM_B]);
@@ -689,51 +754,58 @@ int launch(const float* desc_a, const float* desc_b, const uint8_t* valid_a,
   const SideOut oa{perm_a, a16, ainfo, arad, aidx, rsum, np_};
   const SideOut ob{perm_b, b16, binfo, nullptr, bidx, csum, mp};
 
-  order_kernel<<<2, SORT_THREADS, 0, st>>>(ia, ib, perm_a, np_, perm_b, mp, done);
-  gather_kernel<D><<<np_ / TILE + mp / TILE, GATHER_THREADS, 0, st>>>(ia, oa, ib, ob);
-  search_kernel<D><<<dim3(np_ / TILE, splits), SEARCH_THREADS, Smem<D>::BYTES, st>>>(
+  order_kernel<<<dim3(2, batch), SORT_THREADS, 0, st>>>(ia, ib, perm_a, np_, perm_b, mp, done,
+                                                        block);
+  gather_kernel<D><<<dim3(np_ / TILE + mp / TILE, batch), GATHER_THREADS, 0, st>>>(
+      ia, oa, ib, ob, block);
+  search_kernel<D><<<dim3(np_ / TILE, splits, batch), SEARCH_THREADS, Smem<D>::BYTES, st>>>(
       a16, ainfo, arad, aidx, rsum, b16, binfo, bidx, csum, mp / TILE, np_, dmin, dmax,
-      pbest, pidx, psec, done, perm_a, out_idx, out_best, out_second);
+      pbest, pidx, psec, done, perm_a, out_idx, out_best, out_second, block, n);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The scratch buffer masked_nn_launch needs for n rows and m columns of
-// width d: its size in bytes; `offsets` (N_FIELDS = 15 entries) receives each
-// field's byte offset: perm_a [np_], perm_b [mp] int32 (np_, mp: n, m rounded
-// up to 64); a16 [np_, d], b16 [mp, d] bf16; ainfo [np_, 4], binfo [mp, 4] f32
-// (x, y, norm, level bits); arad [np_] f32; aidx [np_], bidx [mp] int32;
-// rsum [np_/64, 8], csum [mp/64, 8] f32 (box, level range and count bits);
-// pbest, pidx, psec [splits, np_]; done [np_/64] int32; and `splits` the
-// column splits.
-extern "C" long long masked_nn_scratch_layout(int n, int m, int d, long long* offsets,
-                                               int* splits) {
+// The scratch buffer masked_nn_launch needs for `batch` problems of n rows
+// and m columns of width d: its size in bytes (`batch` consecutive blocks of
+// one problem's layout, each a multiple of 256 bytes); `offsets` (N_FIELDS =
+// 15 entries) receives each field's byte offset in a block: perm_a [np_],
+// perm_b [mp] int32 (np_, mp: n, m rounded up to 64); a16 [np_, d], b16
+// [mp, d] bf16; ainfo [np_, 4], binfo [mp, 4] f32 (x, y, norm, level bits);
+// arad [np_] f32; aidx [np_], bidx [mp] int32; rsum [np_/64, 8], csum
+// [mp/64, 8] f32 (box, level range and count bits); pbest, pidx, psec
+// [splits, np_]; done [np_/64] int32; and `splits` the column splits.
+extern "C" long long masked_nn_scratch_layout(int n, int m, int d, int batch,
+                                               long long* offsets, int* splits) {
   const int np_ = (n + TILE - 1) / TILE * TILE, mp = (m + TILE - 1) / TILE * TILE;
   *splits = split_count(np_, mp);
-  return scratch_layout(n, m, d, offsets);
+  return batch * scratch_layout(n, m, d, offsets);
 }
 
 // Plain C entry point (loaded with ctypes), its arguments in the order of
-// the wrapper's.  Every pointer is a device pointer to a contiguous array:
-// desc_a [n, d], desc_b [m, d] f32 with d 128 or 256; valid_a [n], valid_b
-// [m] bool (one byte); uv_a [n, 2], uv_b [m, 2], rad2 [n] f32; lvl_a [n],
-// lvl_b [m] int32; `scratch` as masked_nn_scratch_layout describes it for the
-// same n, m and d (256-byte aligned); outputs out_idx [n] int32, out_best
-// [n], out_second [n] f32.  Launches on `stream` without synchronising;
-// returns the first cudaError_t (cudaErrorInvalidValue for another width).
+// the wrapper's.  Every pointer is a device pointer to a contiguous array
+// with a leading axis of `batch` problems: desc_a [batch, n, d], desc_b
+// [batch, m, d] f32 with d 128 or 256; valid_a [batch, n], valid_b [batch,
+// m] bool (one byte); uv_a [batch, n, 2], uv_b [batch, m, 2], rad2 [batch,
+// n] f32; lvl_a [batch, n], lvl_b [batch, m] int32; `scratch` as
+// masked_nn_scratch_layout describes it for the same n, m, d and batch
+// (256-byte aligned); outputs out_idx [batch, n] int32, out_best [batch,
+// n], out_second [batch, n] f32.  Launches on `stream` without
+// synchronising; returns the first cudaError_t (cudaErrorInvalidValue for
+// another width, or for an empty or too large a batch).
 extern "C" int masked_nn_launch(
     const float* desc_a, const float* desc_b, const uint8_t* valid_a, const uint8_t* valid_b,
     const float* uv_a, const float* uv_b, const float* rad2,
-    const int32_t* lvl_a, const int32_t* lvl_b, int n, int m, int d, float dmin, float dmax,
-    void* scratch, int32_t* out_idx, float* out_best, float* out_second, void* stream) {
-  if (n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
+    const int32_t* lvl_a, const int32_t* lvl_b, int n, int m, int d, int batch, float dmin,
+    float dmax, void* scratch, int32_t* out_idx, float* out_best, float* out_second,
+    void* stream) {
+  if (n <= 0 || m <= 0 || batch <= 0 || batch > 65535) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (d == 128)
     return launch<128>(desc_a, desc_b, valid_a, valid_b, uv_a, uv_b, rad2, lvl_a, lvl_b, n, m,
-                       dmin, dmax, scratch, out_idx, out_best, out_second, st);
+                       batch, dmin, dmax, scratch, out_idx, out_best, out_second, st);
   if (d == 256)
     return launch<256>(desc_a, desc_b, valid_a, valid_b, uv_a, uv_b, rad2, lvl_a, lvl_b, n, m,
-                       dmin, dmax, scratch, out_idx, out_best, out_second, st);
+                       batch, dmin, dmax, scratch, out_idx, out_best, out_second, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -20,6 +20,7 @@ from asdslam_torch.config import SlamConfig
 from asdslam_torch.geometry import camera as camera_mod
 from asdslam_torch.ops import fast, patches, pyramid
 from asdslam_torch.utils import graphs
+from asdslam_torch.utils.batching import sequential
 
 
 class FrameFeatures(NamedTuple):
@@ -67,6 +68,9 @@ def make_extractor(cfg: SlamConfig, descriptor_fn, rotate_patches: bool = False)
     """
     budgets = level_budgets(cfg)
     scales = cfg.scale_factors
+    # one descriptor call per sequence in the batched tracking step: its
+    # convolutions' algorithms are picked by batch size (utils/batching.py)
+    describe = sequential(descriptor_fn, f"descriptor:{id(descriptor_fn)}")
 
     def extract(image: torch.Tensor) -> FrameFeatures:
         levels = pyramid.build_pyramid(image, cfg.n_levels, cfg.scale_factor)
@@ -98,7 +102,7 @@ def make_extractor(cfg: SlamConfig, descriptor_fn, rotate_patches: bool = False)
 
         uv = torch.cat(all_uv, dim=0)
         valid = torch.cat(all_valid, dim=0)
-        desc = descriptor_fn(torch.cat(all_pat, dim=0))
+        desc = describe(torch.cat(all_pat, dim=0))
         desc = torch.where(valid[:, None], desc, torch.zeros_like(desc))
         return FrameFeatures(
             uv=uv, uv_und=uv, level=torch.cat(all_lvl, dim=0),

@@ -36,7 +36,7 @@ from asdslam_torch.config import SlamConfig
 from asdslam_torch.frontend import visibility
 from asdslam_torch.geometry import se3
 from asdslam_torch.ops import match
-from asdslam_torch.utils import graphs
+from asdslam_torch.utils import batching, graphs
 
 
 class GeomBlock(NamedTuple):
@@ -75,19 +75,20 @@ class TrackResult(NamedTuple):
 
 
 def _scatter_codes(idx, ok, codes, n_out):
-    """out[idx[a]] = codes[a] for ok rows; -1 elsewhere."""
+    """out[idx[a]] = codes[a] for ok rows; -1 elsewhere.  Out of place, so
+    that it runs under ``torch.func.vmap`` (a batched write into a fresh
+    unbatched buffer is refused there)."""
     safe = torch.where(ok, idx, n_out)
     out = torch.full((n_out + 1,), -1, dtype=torch.int32, device=idx.device)
-    out[safe] = codes.to(torch.int32)
-    return out[:n_out]
+    return out.index_put((safe,), codes.to(torch.int32))[:n_out]
 
 
 def _scatter_rows(base, idx, ok, values):
-    """base with base[idx[a]] = values[a] for ok rows (a copy)."""
+    """base with base[idx[a]] = values[a] for ok rows (a copy, out of place
+    as ``_scatter_codes``)."""
     n = base.shape[0]
     out = torch.cat([base, base.new_zeros((1,) + base.shape[1:])], dim=0)
-    out[torch.where(ok, idx, n)] = values
-    return out[:n]
+    return out.index_put((torch.where(ok, idx, n),), values)[:n]
 
 
 def make_track_step(cfg: SlamConfig, K, extract_fn, device="cuda"):
@@ -99,6 +100,68 @@ def make_track_step(cfg: SlamConfig, K, extract_fn, device="cuda"):
     step is replayed from a CUDA graph (``utils/graphs.py``, the reference's
     ``jax.jit``), the eager function kept as ``.eager``; on the CPU it is the
     eager function."""
+    track_step = _eager_step(cfg, K, extract_fn, device)
+    if torch.device(device).type != "cuda":
+        return track_step
+    return _on_graphs(track_step, "track_step", (cfg.n_features,), device)
+
+
+def make_batched_track_step(cfg: SlamConfig, K, extract_fn, device="cuda"):
+    """The tracking step over a batch of sequences: the reference's
+    ``jax.vmap(step)`` (parallel/multi_seq.py), as ``torch.func.vmap`` of
+    the same eager step.
+
+    Every argument and result gains a leading sequence axis B (imgs [B, H,
+    W], poses [B, 7], ..., prev_crow [B, N] or None).  Each elementwise
+    kernel of the step runs once for the B sequences, and each of its three
+    masked-NN searches is one batched launch of the kernel
+    (``ops/masked_nn.py``'s vmap rule); what a batch could round otherwise
+    (small matrix products, float sums, the descriptor network, the
+    pyramid's resizes; ``utils/batching.py``) runs once per sequence.
+    Sequence b's results are the single step's on sequence b's inputs, bit
+    for bit.  On a CUDA device it is replayed from one CUDA graph per B
+    (``.eager``: the vmapped function); on the CPU it is the vmapped
+    function."""
+    track_step = _eager_step(cfg, K, extract_fn, device)
+    vmapped = torch.func.vmap(track_step)
+    unbound = torch.func.vmap(lambda *a: track_step(*a, None))
+
+    def batched_step(imgs, poses, velocities, prev_feats, prev_pts, cand_pts,
+                     prev_crow=None):
+        # what a batch could round otherwise runs once per sequence
+        with batching.per_sequence():
+            if prev_crow is None:
+                return unbound(imgs, poses, velocities, prev_feats, prev_pts, cand_pts)
+            return vmapped(imgs, poses, velocities, prev_feats, prev_pts, cand_pts, prev_crow)
+
+    if torch.device(device).type != "cuda":
+        return batched_step
+    return _on_graphs(batched_step, "track_step_batched", (cfg.n_features,), device)
+
+
+def _on_graphs(step, name, crow_shape, device):
+    """``step`` replayed from CUDA graphs (``graphs.captured``): the image is
+    uploaded first (a graph takes device tensors), and a missing
+    ``prev_crow`` is all -1 (no row bound: the same result), so both give
+    one graph.  ``.eager`` is ``step``, ``.graphs`` the captured callable."""
+    graph_step = graphs.captured(step, name)
+
+    def captured_step(img, prev_pose7, velocity7, prev_feat, prev_pts, cand_pts,
+                      prev_crow=None):
+        if prev_crow is None:
+            lead = tuple(prev_pose7.shape[:-1])  # the batch axis of a batched step
+            prev_crow = torch.full(lead + crow_shape, -1, dtype=torch.int32, device=device)
+        return graph_step(torch.as_tensor(img).to(device), prev_pose7, velocity7, prev_feat,
+                          prev_pts, cand_pts, prev_crow)
+
+    captured_step.eager = step
+    captured_step.graphs = graph_step
+    return captured_step
+
+
+def _eager_step(cfg: SlamConfig, K, extract_fn, device):
+    """The tracking step as one eager function of one sequence's inputs
+    (``make_track_step``'s docstring)."""
     K = torch.as_tensor(K, dtype=torch.float32).to(device)
     scale_factors = torch.tensor(cfg.scale_factors, dtype=torch.float32, device=device)
     inv_sigma2 = torch.tensor(cfg.inv_level_sigma2, dtype=torch.float32, device=device)
@@ -162,9 +225,9 @@ def make_track_step(cfg: SlamConfig, K, extract_fn, device="cuda"):
         if prev_crow is not None:
             held = prev_crow >= 0
             rows = torch.where(held, torch.clamp(prev_crow, 0, P - 1).to(torch.int64), P)
-            # index_fill_ takes the value as a kernel argument: indexing
+            # index_fill takes the value as a kernel argument: indexing
             # with a Python scalar would copy it to the device and wait
-            bound = torch.zeros(P + 1, dtype=torch.bool, device=device).index_fill_(0, rows, True)
+            bound = torch.zeros(P + 1, dtype=torch.bool, device=device).index_fill(0, rows, True)
             cand_valid = cand_valid & ~bound[:P]
         uv_c, lvl_c, _, vis_c = visibility.project_points(
             pose1, K, cand_pts.pos, cand_pts.normal,
@@ -223,20 +286,4 @@ def make_track_step(cfg: SlamConfig, K, extract_fn, device="cuda"):
                           next_geom=next_geom, crow=crow)
         return feat, res
 
-    if torch.device(device).type != "cuda":
-        return track_step
-    graph_step = graphs.captured(track_step, "track_step")
-
-    def captured_step(img, prev_pose7, velocity7, prev_feat, prev_pts, cand_pts,
-                      prev_crow=None):
-        """``track_step`` replayed from a CUDA graph: the image is uploaded
-        first (a graph takes device tensors), and a missing ``prev_crow`` is
-        all -1 (no row bound: the same result), so both give one graph."""
-        if prev_crow is None:
-            prev_crow = torch.full((N,), -1, dtype=torch.int32, device=device)
-        return graph_step(torch.as_tensor(img).to(device), prev_pose7, velocity7, prev_feat,
-                          prev_pts, cand_pts, prev_crow)
-
-    captured_step.eager = track_step
-    captured_step.graphs = graph_step
-    return captured_step
+    return track_step

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from asdslam_torch.geometry import se3
+from asdslam_torch.utils import batching
 
 
 def project_points(
@@ -26,14 +27,14 @@ def project_points(
     width/height are the MAX image bounds and x_min/y_min the MIN (for a
     distortion-free camera the defaults give the raw image rectangle)."""
     R, t = se3.pose_unpack(pose7)
-    xc = pos @ R.T + t
+    xc = batching.matmul(pos, R.T) + t
     z = xc[:, 2]
     zs = torch.where(torch.abs(z) < 1e-6, torch.full_like(z, 1e-6), z)
     u = K[0, 0] * xc[:, 0] / zs + K[0, 2]
     v = K[1, 1] * xc[:, 1] / zs + K[1, 2]
     uv = torch.stack([u, v], dim=1)
 
-    c = -(R.T @ t)
+    c = -batching.matmul(R.T, t)
     pc = pos - c
     dist = torch.linalg.norm(pc, dim=1)
     view_cos = torch.sum(pc * normal, dim=1) / torch.clamp(dist, min=1e-9)
@@ -49,7 +50,7 @@ def project_points(
     # log(scale_factor) in f32 as the reference computes it; a 0-d CPU
     # tensor acts as a scalar on any device
     log_s = torch.log(torch.tensor(scale_factor, dtype=torch.float32))
-    lvl = torch.ceil(torch.log(torch.clamp(ratio, min=1e-6)) / log_s)
+    lvl = torch.ceil(batching.log(torch.clamp(ratio, min=1e-6)) / log_s)
     pred_level = torch.clamp(lvl, 0, n_levels - 1).to(torch.int32)
 
     visible = valid & in_img & in_depth & in_range & ok_angle

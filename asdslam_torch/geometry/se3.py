@@ -10,12 +10,16 @@ Port of ``asdslam_tpu/geometry/se3.py``; the same conventions:
 
 All functions broadcast over leading batch dimensions and branch on no data:
 small-angle cases are selected with ``torch.where`` and Taylor fallbacks, so
-the functions never synchronise with the device.
+the functions never synchronise with the device.  Their matrix products
+and transcendentals are ``utils/batching.py``'s, so a pose's bits do not
+depend on a batch of sequences it is in.
 """
 
 from __future__ import annotations
 
 import torch
+
+from asdslam_torch.utils import batching
 
 _EPS = 1e-8
 
@@ -115,8 +119,8 @@ def _rodrigues_coeffs(theta2):
     """(sin t / t, (1 - cos t) / t^2, theta) with Taylor fallbacks."""
     theta = torch.sqrt(theta2 + _EPS * _EPS)
     small = theta2 < 1e-8
-    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
-    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    a = torch.where(small, 1.0 - theta2 / 6.0, batching.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - batching.cos(theta)) / theta2)
     return a, b, small
 
 
@@ -124,21 +128,21 @@ def so3_exp(w):
     """Rodrigues: tangent [..., 3] -> rotation matrix [..., 3, 3]."""
     a, b, _ = _rodrigues_coeffs(torch.sum(w * w, dim=-1))
     W = hat(w)
-    return _eye_like(W) + a[..., None, None] * W + b[..., None, None] * (W @ W)
+    return _eye_like(W) + a[..., None, None] * W + b[..., None, None] * batching.matmul(W, W)
 
 
 def so3_log(R):
     """Rotation matrix [..., 3, 3] -> tangent [..., 3]."""
     tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
     cos_t = torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)
-    theta = torch.arccos(cos_t)
+    theta = batching.arccos(cos_t)
     w = torch.stack(
         [R[..., 2, 1] - R[..., 1, 2],
          R[..., 0, 2] - R[..., 2, 0],
          R[..., 1, 0] - R[..., 0, 1]],
         dim=-1,
     )
-    sin_t = torch.sin(theta)  # theta in [0, pi] so sin_t >= 0
+    sin_t = batching.sin(theta)  # theta in [0, pi] so sin_t >= 0
     small = sin_t < 1e-6
     near_pi = small & (cos_t < 0)
     scale = torch.where(small, 0.5 + theta * theta / 12.0,
@@ -176,11 +180,11 @@ def se3_exp(xi):
     a, b, small = _rodrigues_coeffs(theta2)
     c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (1.0 - a) / theta2)
     W = hat(w)
-    WW = W @ W
+    WW = batching.matmul(W, W)
     I = _eye_like(W)
     R = I + a[..., None, None] * W + b[..., None, None] * WW
     V = I + b[..., None, None] * W + c[..., None, None] * WW
-    t = (V @ v[..., None])[..., 0]
+    t = batching.matmul(V, v[..., None])[..., 0]
     return R, t
 
 
@@ -190,7 +194,7 @@ def se3_log(R, t):
     theta2 = torch.sum(w * w, dim=-1)
     a, b, small = _rodrigues_coeffs(theta2)
     W = hat(w)
-    WW = W @ W
+    WW = batching.matmul(W, W)
     # V^{-1} = I - W/2 + (1/theta^2)(1 - a/(2b)) W^2
     coef = torch.where(
         small,
@@ -198,23 +202,23 @@ def se3_log(R, t):
         (1.0 - a / (2.0 * b)) / torch.clamp(theta2, min=_EPS),
     )
     Vinv = _eye_like(W) - 0.5 * W + coef[..., None, None] * WW
-    v = (Vinv @ t[..., None])[..., 0]
+    v = batching.matmul(Vinv, t[..., None])[..., 0]
     return torch.cat([w, v], dim=-1)
 
 
 def compose(Ra, ta, Rb, tb):
     """(Ra,ta) o (Rb,tb): x -> Ra (Rb x + tb) + ta."""
-    return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta
+    return batching.matmul(Ra, Rb), batching.matmul(Ra, tb[..., None])[..., 0] + ta
 
 
 def inverse(R, t):
     Rt = R.transpose(-1, -2)
-    return Rt, -(Rt @ t[..., None])[..., 0]
+    return Rt, -batching.matmul(Rt, t[..., None])[..., 0]
 
 
 def transform(R, t, x):
     """Apply pose to points ``x[..., 3]``."""
-    return (R @ x[..., None])[..., 0] + t
+    return batching.matmul(R, x[..., None])[..., 0] + t
 
 
 # --------------------------------------------------------------------------- #

@@ -22,6 +22,15 @@ thread's label.  For CPU tensors it runs ``masked_nn_plain``.  It never
 falls back from the kernel: a tensor it cannot take, or a failed launch,
 raises.
 
+A leading batch axis (every input [B, ...], outputs [B, N]) is B independent
+searches in ONE launch, counted once: the kernel's last grid axis selects
+the problem, the reference's ``jax.vmap`` of its ``pallas_call``.  Under
+``torch.func.vmap`` the wrapper calls the custom operator
+``torch.ops.asdslam.masked_nn``, whose vmap rule makes the vmapped axis that
+batch, so a vmapped caller (the multi-sequence tracking step) reaches the
+batched launch, or on CPU tensors the batched plain version.  Each
+problem's results are the bits of its own call.
+
 The wrapper may be called from several threads at once (the tracker and the
 mapping worker): the scratch table and the counters are changed under one
 lock, and scratch is keyed by the calling thread's current stream, so
@@ -49,7 +58,7 @@ CELLS = 64      # cells per axis; positions beyond clamp to the edge cells
 INERT = CELLS * CELLS  # the sort key of entries that cannot pass the gate
 
 _c_ptr = ctypes.c_void_p
-_ARGTYPES = ([_c_ptr] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [_c_ptr] * 5)
+_ARGTYPES = ([_c_ptr] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [_c_ptr] * 5)
 # the scratch fields, in the order of the C source's layout
 _FIELDS = ("perm_a", "perm_b", "a16", "b16", "ainfo", "binfo", "arad", "aidx", "bidx",
            "rsum", "csum", "pbest", "pidx", "psec", "done")
@@ -62,67 +71,72 @@ def _lib():
     lib = kernels.load("masked_nn")
     lib.masked_nn_launch.argtypes = _ARGTYPES
     lib.masked_nn_launch.restype = ctypes.c_int
-    lib.masked_nn_scratch_layout.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                             ctypes.POINTER(ctypes.c_longlong),
-                                             ctypes.POINTER(ctypes.c_int)]
+    lib.masked_nn_scratch_layout.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
     lib.masked_nn_scratch_layout.restype = ctypes.c_longlong
     return lib
 
 
 @functools.lru_cache(maxsize=64)
-def _layout(n, m, d):
-    """(scratch bytes, {field: byte offset}, column splits) for N rows and
-    M columns of width d, as the C source lays the scratch out."""
+def _layout(n, m, d, batch=1):
+    """(scratch bytes, {field: byte offset in a problem's block}, column
+    splits) for ``batch`` problems of N rows and M columns of width d, as
+    the C source lays the scratch out: ``batch`` blocks of one problem's."""
     offsets = (ctypes.c_longlong * len(_FIELDS))()
     splits = ctypes.c_int()
-    nbytes = _lib().masked_nn_scratch_layout(n, m, d, offsets, ctypes.byref(splits))
+    nbytes = _lib().masked_nn_scratch_layout(n, m, d, batch, offsets, ctypes.byref(splits))
     return nbytes, dict(zip(_FIELDS, offsets)), splits.value
 
 
 def _defaults(desc_a, desc_b, uv_a, uv_b, rad2, levels_a, levels_b):
     """Fill the optional inputs the reference allows to be None: no window
-    (rad2 = BIG), positions and levels zero."""
-    n, m, dev = desc_a.shape[0], desc_b.shape[0], desc_a.device
+    (rad2 = BIG), positions and levels zero (with the descriptors' leading
+    batch axes, if any)."""
+    a, b, dev = desc_a.shape[:-1], desc_b.shape[:-1], desc_a.device
     if uv_a is None:
-        uv_a = torch.zeros((n, 2), dtype=torch.float32, device=dev)
+        uv_a = torch.zeros(a + (2,), dtype=torch.float32, device=dev)
     if uv_b is None:
-        uv_b = torch.zeros((m, 2), dtype=torch.float32, device=dev)
+        uv_b = torch.zeros(b + (2,), dtype=torch.float32, device=dev)
     if rad2 is None:
-        rad2 = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+        rad2 = torch.full(a, BIG, dtype=torch.float32, device=dev)
     if levels_a is None:
-        levels_a = torch.zeros((n,), dtype=torch.int32, device=dev)
+        levels_a = torch.zeros(a, dtype=torch.int32, device=dev)
     if levels_b is None:
-        levels_b = torch.zeros((m,), dtype=torch.int32, device=dev)
+        levels_b = torch.zeros(b, dtype=torch.int32, device=dev)
     return uv_a, uv_b, rad2, levels_a, levels_b
 
 
 def gate_plain(valid_a, valid_b, uv_a, uv_b, rad2, levels_a, levels_b,
                level_window=(-1e9, 1e9)):
-    """[N, M] bool: the pairs that pass the window, validity and level
-    gates (each f32 operation rounded on its own, as in the kernel)."""
+    """[..., N, M] bool: the pairs that pass the window, validity and level
+    gates (each f32 operation rounded on its own, as in the kernel); any
+    leading batch axes are independent problems."""
     dmin, dmax = float(level_window[0]), float(level_window[1])
-    dx = uv_a[:, None, 0] - uv_b[None, :, 0]
-    dy = uv_a[:, None, 1] - uv_b[None, :, 1]
-    ld = (levels_b[None, :] - levels_a[:, None]).to(torch.float32)
-    ok = ((dx * dx + dy * dy) <= rad2[:, None]) & valid_a[:, None] & valid_b[None, :]
+    dx = uv_a[..., :, None, 0] - uv_b[..., None, :, 0]
+    dy = uv_a[..., :, None, 1] - uv_b[..., None, :, 1]
+    ld = (levels_b[..., None, :] - levels_a[..., :, None]).to(torch.float32)
+    ok = (((dx * dx + dy * dy) <= rad2[..., :, None]) & valid_a[..., :, None]
+          & valid_b[..., None, :])
     return ok & (ld >= dmin) & (ld <= dmax)
 
 
 def masked_nn_plain(desc_a, desc_b, valid_a, valid_b, uv_a, uv_b, rad2,
                     levels_a, levels_b, level_window=(-1e9, 1e9)):
-    """The same function as the kernel, on the full [N, M] distance matrix
-    (the reference's distance-matrix path, match.py:235-243, with BIG in
-    place of +inf)."""
-    a2 = torch.sum(desc_a * desc_a, dim=1)
-    b2 = torch.sum(desc_b * desc_b, dim=1)
-    ab = desc_a.to(torch.bfloat16).to(torch.float32) @ desc_b.to(torch.bfloat16).to(torch.float32).T
-    dist = torch.clamp(a2[:, None] + b2[None, :] - 2.0 * ab, min=0.0)
+    """The same function as the kernel, on the full [..., N, M] distance
+    matrix (the reference's distance-matrix path, match.py:235-243, with BIG
+    in place of +inf).  Leading batch axes are independent problems; on the
+    CPU each problem's results are the bits of its own call."""
+    a2 = torch.sum(desc_a * desc_a, dim=-1)
+    b2 = torch.sum(desc_b * desc_b, dim=-1)
+    ab = (desc_a.to(torch.bfloat16).to(torch.float32)
+          @ desc_b.to(torch.bfloat16).to(torch.float32).transpose(-1, -2))
+    dist = torch.clamp(a2[..., :, None] + b2[..., None, :] - 2.0 * ab, min=0.0)
     ok = gate_plain(valid_a, valid_b, uv_a, uv_b, rad2, levels_a, levels_b, level_window)
     dist = torch.where(ok, dist, BIG)
-    idx = torch.argmin(dist, dim=1)
-    best = torch.gather(dist, 1, idx[:, None])[:, 0]
-    cols = torch.arange(dist.shape[1], device=dist.device)
-    second = torch.where(cols[None, :] == idx[:, None], BIG, dist).amin(dim=1)
+    idx = torch.argmin(dist, dim=-1)
+    best = torch.gather(dist, -1, idx[..., None])[..., 0]
+    cols = torch.arange(dist.shape[-1], device=dist.device)
+    second = torch.where(cols == idx[..., None], BIG, dist).amin(dim=-1)
     return idx.to(torch.int32), best, second
 
 
@@ -212,7 +226,15 @@ def _padded_order(keys):
 
 def prepare_plain(valid_a, valid_b, uv_a, uv_b, rad2, levels_a, levels_b):
     """The kernel's ordering and tile summaries (the kernel's order inside a
-    cell may differ; nothing depends on it)."""
+    cell may differ; nothing depends on it).  With a leading batch axis,
+    each field gains it: problem b's is that of its own call."""
+    if valid_a.ndim == 2:
+        each = [prepare_plain(*(x[b] for x in (valid_a, valid_b, uv_a, uv_b, rad2, levels_a,
+                                                levels_b)))
+                for b in range(valid_a.shape[0])]
+        return Prepared(*(torch.stack(f) if isinstance(f[0], torch.Tensor)
+                          else TileSummary(*(torch.stack(g) for g in zip(*f)))
+                          for f in zip(*each)))
     pass_a, pass_b = can_pass(valid_a, uv_a, rad2), can_pass(valid_b, uv_b)
     perm_a = _padded_order(sort_keys(valid_a, uv_a, rad2))
     perm_b = _padded_order(sort_keys(valid_b, uv_b))
@@ -223,16 +245,17 @@ def prepare_plain(valid_a, valid_b, uv_a, uv_b, rad2, levels_a, levels_b):
 
 
 def live_tiles(rows: TileSummary, cols: TileSummary, level_window=(-1e9, 1e9)):
-    """[row tiles, column tiles] bool: the tile pairs the kernel visits.
-    A pair is skipped only when the boxes miss, the level ranges cannot meet
-    within ``level_window``, or either side has nothing that can pass."""
-    r, c = rows.box[:, None, :], cols.box[None, :, :]
+    """[..., row tiles, column tiles] bool: the tile pairs the kernel visits
+    (leading batch axes: one matrix per problem).  A pair is skipped only
+    when the boxes miss, the level ranges cannot meet within
+    ``level_window``, or either side has nothing that can pass."""
+    r, c = rows.box[..., :, None, :], cols.box[..., None, :, :]
     meet = ((r[..., 0] <= c[..., 1]) & (c[..., 0] <= r[..., 1])
             & (r[..., 2] <= c[..., 3]) & (c[..., 2] <= r[..., 3]))
-    hi = (cols.lmax[None, :] - rows.lmin[:, None]).to(torch.float32)
-    lo = (cols.lmin[None, :] - rows.lmax[:, None]).to(torch.float32)
+    hi = (cols.lmax[..., None, :] - rows.lmin[..., :, None]).to(torch.float32)
+    lo = (cols.lmin[..., None, :] - rows.lmax[..., :, None]).to(torch.float32)
     meet &= (hi >= float(level_window[0])) & (lo <= float(level_window[1]))
-    return meet & (rows.count[:, None] > 0) & (cols.count[None, :] > 0)
+    return meet & (rows.count[..., :, None] > 0) & (cols.count[..., None, :] > 0)
 
 
 def culled_gated_pairs(prep: Prepared, gated, level_window=(-1e9, 1e9)):
@@ -270,7 +293,7 @@ _NAMES = ("desc_a", "desc_b", "valid_a", "valid_b", "uv_a", "uv_b", "rad2", "lev
           "levels_b")
 _DTYPES = (torch.float32, torch.float32, torch.bool, torch.bool, torch.float32,
            torch.float32, torch.float32, torch.int32, torch.int32)
-_scratch = {}  # (device index, stream, N, M, d) -> scratch buffer, reused in stream order
+_scratch = {}  # (device index, stream, N, M, d[, B]) -> scratch, reused in stream order
 _lock = threading.Lock()  # guards _scratch and the launch counters
 _tls = threading.local()  # the calling thread's call-site label
 
@@ -287,13 +310,15 @@ def call_site(name: str):
         _tls.site = prev
 
 
-def _scratch_buffer(dev, stream, n, m, d):
-    """The scratch buffer of (device, stream, N, M, d), made at first use.  The
+def _scratch_buffer(dev, stream, n, m, d, batch=1):
+    """The scratch buffer of (device, stream, N, M, d[, B]), made at first
+    use (a batch of one shares one problem's buffer: the same layout).  The
     table is emptied before it passes 17 entries: a dropped buffer goes back
     to the allocator's pool of the stream it was made on, so a queued launch
     keeps what it reads."""
-    key = (dev.index, stream, n, m, d)
-    nbytes = _layout(n, m, d)[0]
+    sizes = (n, m, d) + ((batch,) if batch > 1 else ())
+    key = (dev.index, stream) + sizes
+    nbytes = _layout(*sizes)[0]
     with _lock:
         scratch = _scratch.get(key)
         if scratch is None:
@@ -305,24 +330,33 @@ def _scratch_buffer(dev, stream, n, m, d):
 
 def _launch(args, level_window, scratch=None):
     """Check the nine inputs, launch the kernel; returns ((idx, best,
-    second), scratch buffer).  Without ``scratch`` the call reuses one
-    buffer per device, stream and shape (calls on one stream run in order).
-    The descriptor width must be one the kernel is built for (DESC_DIMS)."""
+    second), scratch buffer).  The inputs are one problem ([N, d], ...) or a
+    batch of them ([B, N, d], ...: one launch, outputs [B, N]).  Without
+    ``scratch`` the call reuses one buffer per device, stream, shape and
+    batch (calls on one stream run in order).  The descriptor width must be
+    one the kernel is built for (DESC_DIMS)."""
     desc_a, desc_b = args[0], args[1]
-    n, d = desc_a.shape
-    m = desc_b.shape[0]
+    if desc_a.ndim not in (2, 3):
+        raise ValueError(f"masked_nn: desc_a has shape {tuple(desc_a.shape)}; expected [N, d] "
+                         "or [B, N, d]")
+    batched = desc_a.ndim == 3
+    batch = desc_a.shape[0] if batched else 1
+    lead = (batch,) if batched else ()
+    n, d = desc_a.shape[-2:]
+    m = desc_b.shape[-2]
     dev = desc_a.device
     index = dev.index
     if d not in DESC_DIMS:
         raise ValueError(f"masked_nn: descriptor width {d}; the kernel is built for {DESC_DIMS}")
     shapes = ((n, d), (m, d), (n,), (m,), (n, 2), (m, 2), (n,), (n,), (m,))
     for name, t, dtype, shape in zip(_NAMES, args, _DTYPES, shapes):
+        shape = lead + shape
         # the common case in one cheap test; the full check names the fault
         if not (isinstance(t, torch.Tensor) and t.dtype is dtype and t.shape == shape
                 and t.get_device() == index and t.is_contiguous()):
             _check(name, t, dtype, shape, dev)
-    if n == 0 or m == 0:
-        raise ValueError(f"masked_nn: empty input (N={n}, M={m})")
+    if n == 0 or m == 0 or batch == 0:
+        raise ValueError(f"masked_nn: empty input (B={batch}, N={n}, M={m})")
 
     lib = _lib()
     # the raw handle of the current stream (torch.cuda.current_stream(dev)
@@ -332,21 +366,21 @@ def _launch(args, level_window, scratch=None):
         # a graph keeps the raw pointer of what it captured: during a
         # capture the scratch is the capture's own, made in the graph's
         # pool, never one of the table's, which the table may drop
-        scratch = (torch.empty(_layout(n, m, d)[0], dtype=torch.uint8, device=dev)
+        scratch = (torch.empty(_layout(n, m, d, batch)[0], dtype=torch.uint8, device=dev)
                    if dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
-                   else _scratch_buffer(dev, stream, n, m, d))
-    out = torch.empty((3, n), dtype=torch.float32, device=dev)
-    idx, best, second = out[0].view(torch.int32), out[1], out[2]
-    base = out.data_ptr()
+                   else _scratch_buffer(dev, stream, n, m, d, batch))
+    # three buffers of their own: a custom operator's outputs must not alias
+    idx = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
+    best = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+    second = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
     ptrs = [t.data_ptr() for t in args]
     lw = (float(level_window[0]), float(level_window[1]))
+    outs = (scratch.data_ptr(), idx.data_ptr(), best.data_ptr(), second.data_ptr(), stream)
     if index != torch.cuda.current_device():
         with torch.cuda.device(dev):
-            rc = lib.masked_nn_launch(*ptrs, n, m, d, *lw, scratch.data_ptr(), base,
-                                      base + 4 * n, base + 8 * n, stream)
+            rc = lib.masked_nn_launch(*ptrs, n, m, d, batch, *lw, *outs)
     else:
-        rc = lib.masked_nn_launch(*ptrs, n, m, d, *lw, scratch.data_ptr(), base,
-                                  base + 4 * n, base + 8 * n, stream)
+        rc = lib.masked_nn_launch(*ptrs, n, m, d, batch, *lw, *outs)
     if rc != 0:
         raise RuntimeError(f"masked_nn kernel launch failed: cudaError_t {rc}")
     return (idx, best, second), scratch
@@ -362,18 +396,56 @@ def masked_nn(desc_a, desc_b, valid_a, valid_b, uv_a=None, uv_b=None, rad2=None,
     window radius per row (None: no window); levels_a [N] / levels_b [M]
     int32; level_window bounds levels_b[j] - levels_a[i], inclusive.
     Returns (idx [N] int32, best [N] f32, second [N] f32); masked rows have
-    best == second == BIG.
+    best == second == BIG.  Every input may carry a leading batch axis B
+    (the outputs then [B, N]): B problems in one launch, counted once; under
+    ``torch.func.vmap`` the batch is the vmapped axis.
     """
     uv_a, uv_b, rad2, levels_a, levels_b = _defaults(
         desc_a, desc_b, uv_a, uv_b, rad2, levels_a, levels_b)
     args = (desc_a, desc_b, valid_a, valid_b, uv_a, uv_b, rad2, levels_a, levels_b)
-    if desc_a.device.type == "cpu":
+    if graphs._transformed(args):
+        # under torch.func.vmap: the operator's vmap rule batches the call
+        return torch.ops.asdslam.masked_nn(*args, float(level_window[0]),
+                                           float(level_window[1]))
+    return _run(args, level_window)
+
+
+def _run(args, level_window):
+    """The search on real tensors (one problem or a batch): the plain
+    version on the CPU; on CUDA the kernel, one launch counted once.  The
+    operator's body, looked up by name at each call, so a check may stand in
+    for it."""
+    if args[0].device.type == "cpu":
         return masked_nn_plain(*args, level_window)
-    if desc_a.device.type != "cuda":
-        raise ValueError(f"masked_nn: no kernel for device {desc_a.device}")
+    if args[0].device.type != "cuda":
+        raise ValueError(f"masked_nn: no kernel for device {args[0].device}")
     out = _launch(args, level_window)[0]
     graphs.host_effect(_count)
     return out
+
+
+def _op(desc_a: torch.Tensor, desc_b: torch.Tensor, valid_a: torch.Tensor,
+        valid_b: torch.Tensor, uv_a: torch.Tensor, uv_b: torch.Tensor, rad2: torch.Tensor,
+        levels_a: torch.Tensor, levels_b: torch.Tensor, dmin: float,
+        dmax: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _run((desc_a, desc_b, valid_a, valid_b, uv_a, uv_b, rad2, levels_a, levels_b),
+                (dmin, dmax))
+
+
+def _vmap_rule(info, in_dims, *args):
+    """``torch.func.vmap`` of the operator: the vmapped axis first on every
+    input (an unbatched one repeated), one call of the operator on the
+    batch of problems."""
+    tensors, window = args[:9], args[9:]
+    batch = [(t.movedim(dim, 0) if dim is not None
+              else t.expand((info.batch_size,) + t.shape)).contiguous()
+             for t, dim in zip(tensors, in_dims[:9])]
+    return torch.ops.asdslam.masked_nn(*batch, *window), (0, 0, 0)
+
+
+if not hasattr(torch.ops.asdslam, "masked_nn"):  # once per process
+    torch.library.custom_op("asdslam::masked_nn", mutates_args=())(_op)
+    torch.library.register_vmap("asdslam::masked_nn", _vmap_rule)
 
 
 def _count():
@@ -398,25 +470,30 @@ def masked_nn_tiles(desc_a, desc_b, valid_a, valid_b, uv_a, uv_b, rad2, levels_a
                     levels_b, level_window=(-1e9, 1e9)):
     """The kernel on CUDA tensors (not counted in ``masked_nn.launches``),
     returning its outputs and its own preparation as a ``Prepared``, for
-    checks of the culling on the card."""
-    n, m = desc_a.shape[0], desc_b.shape[0]
-    nbytes, offsets, _ = _layout(n, m, desc_a.shape[1])
+    checks of the culling on the card.  A batch gives each field of the
+    preparation the leading batch axis."""
+    batch = desc_a.shape[0] if desc_a.ndim == 3 else 1
+    n, m, d = desc_a.shape[-2], desc_b.shape[-2], desc_a.shape[-1]
+    nbytes, offsets, _ = _layout(n, m, d, batch)
     buf = torch.empty(nbytes, dtype=torch.uint8, device=desc_a.device)
     out, _ = _launch((desc_a, desc_b, valid_a, valid_b, uv_a, uv_b, rad2, levels_a, levels_b),
                      level_window, scratch=buf)
 
     np_, mp = -(-n // TILE) * TILE, -(-m // TILE) * TILE
+    blocks = buf.view(batch, nbytes // batch)
 
     def view(name, dtype, shape):
         off = offsets[name]
-        return buf[off:off + 4 * shape[0] * shape[1]].view(dtype).view(shape)
+        x = blocks[:, off:off + 4 * shape[0] * shape[1]].view(dtype).reshape((batch,) + shape)
+        return x if desc_a.ndim == 3 else x[0]
 
     def summary(name, tiles):
         s = view(name, torch.float32, (tiles, 8))
         bits = s.view(torch.int32)
-        return TileSummary(box=s[:, :4], lmin=bits[:, 4], lmax=bits[:, 5], count=bits[:, 6])
+        return TileSummary(box=s[..., :4], lmin=bits[..., 4], lmax=bits[..., 5],
+                           count=bits[..., 6])
 
-    prep = Prepared(view("perm_a", torch.int32, (np_, 1))[:, 0].long(),
-                    view("perm_b", torch.int32, (mp, 1))[:, 0].long(),
+    prep = Prepared(view("perm_a", torch.int32, (np_, 1))[..., 0].long(),
+                    view("perm_b", torch.int32, (mp, 1))[..., 0].long(),
                     summary("rsum", np_ // TILE), summary("csum", mp // TILE))
     return out, prep

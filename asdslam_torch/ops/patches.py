@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from asdslam_torch.utils import batching
+
 
 def _gather_patches(image: torch.Tensor, xy: torch.Tensor, size: int):
     """[K, size, size] patches centred at integer keypoints xy (x, y)."""
@@ -35,9 +37,9 @@ def ic_angle(image: torch.Tensor, xy: torch.Tensor, radius: int = 15):
     yy = coords[:, None]
     xx = coords[None, :]
     w = ((yy * yy + xx * xx) <= (radius * radius)).to(torch.float32)
-    m10 = torch.sum(patches * (xx * w), dim=(1, 2))
-    m01 = torch.sum(patches * (yy * w), dim=(1, 2))
-    return torch.atan2(m01, m10)
+    m10 = batching.sum(patches * (xx * w), dim=(1, 2))
+    m01 = batching.sum(patches * (yy * w), dim=(1, 2))
+    return batching.atan2(m01, m10)
 
 
 def extract_patches(image: torch.Tensor, xy: torch.Tensor, size: int = 32):
@@ -55,8 +57,8 @@ def extract_rotated_patches(image: torch.Tensor, xy: torch.Tensor, angles: torch
     half = (size - 1) / 2.0
     coords = torch.arange(size, dtype=torch.float32, device=image.device) - half
     gy, gx = torch.meshgrid(coords, coords, indexing="ij")
-    ca = torch.cos(angles)[:, None, None]
-    sa = torch.sin(angles)[:, None, None]
+    ca = batching.cos(angles)[:, None, None]
+    sa = batching.sin(angles)[:, None, None]
     sx = ca * gx[None] - sa * gy[None] + xy[:, 0][:, None, None]
     sy = sa * gx[None] + ca * gy[None] + xy[:, 1][:, None, None]
     H, W = image.shape

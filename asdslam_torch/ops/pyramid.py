@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from asdslam_torch.utils.batching import sequential
+
 
 def level_shapes(h: int, w: int, n_levels: int, scale_factor: float) -> List[Tuple[int, int]]:
     shapes = []
@@ -58,6 +60,11 @@ def resize(image: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
     return (wh.T @ image) @ ww
 
 
+# one resize per sequence in the batched tracking step: a matrix product's
+# kernel is picked by shape (utils/batching.py)
+_resize_each = sequential(resize, "pyramid.resize")
+
+
 def build_pyramid(image: torch.Tensor, n_levels: int, scale_factor: float):
     """image [H, W] float32 -> list of [h_i, w_i] tensors (level 0 = input),
     each level resized from the previous one (the reference's cascade)."""
@@ -65,7 +72,7 @@ def build_pyramid(image: torch.Tensor, n_levels: int, scale_factor: float):
     shapes = level_shapes(h, w, n_levels, scale_factor)
     levels = [image]
     for i in range(1, n_levels):
-        levels.append(resize(levels[-1], shapes[i]))
+        levels.append(_resize_each(levels[-1], shapes[i]))
     return levels
 
 

@@ -4,12 +4,13 @@ batch of sequences, the batch split over the device mesh.
 Port of ``asdslam_tpu/parallel/multi_seq.py``.  Scaling the step is pure
 data parallelism: each shard tracks its own subset of sequences and no
 per-sequence state crosses shards, so nothing is reduced
-(``mesh.reduced_elems`` does not move).  The reference vmaps the jitted
-step and runs it under ``shard_map``, which makes the masked-NN search one
-launch with a batch grid axis; here each shard runs the single-sequence
-step (``track_step.make_track_step``) once per sequence, so the search is
-launched three times per sequence per frame, and the shards that share a
-card run one after another.
+(``mesh.reduced_elems`` does not move).  As the reference vmaps the step
+and runs it under ``shard_map``, each shard runs its sequences as one
+batched step (``track_step.make_batched_track_step``: ``torch.func.vmap``
+of the single step, one CUDA graph per shard and batch size on the card),
+so the masked-NN search is launched three times a frame per shard, each
+launch with a batch grid axis over the shard's sequences.  Shards that
+share a card run one after another.
 """
 
 from __future__ import annotations
@@ -22,18 +23,20 @@ from asdslam_torch.parallel.dist import Mesh
 
 
 def _take(x, b, device):
-    """Sequence ``b`` of a (nested) NamedTuple of batched tensors."""
+    """Sequence ``b`` (an index or a slice) of a (nested) NamedTuple of
+    batched tensors."""
     if isinstance(x, tuple):
         return type(x)(*(_take(f, b, device) for f in x))
     return x[b].to(device)
 
 
-def _stack(items, device):
-    """The inverse of ``_take``: a leading sequence axis, on ``device``."""
+def _cat(items, device):
+    """The shards' blocks of a (nested) NamedTuple joined along the leading
+    sequence axis, on ``device``."""
     if isinstance(items[0], tuple):
-        return type(items[0])(*(_stack([it[j] for it in items], device)
+        return type(items[0])(*(_cat([it[j] for it in items], device)
                                 for j in range(len(items[0]))))
-    return torch.stack([t.to(device) for t in items])
+    return torch.cat([t.to(device) for t in items])
 
 
 def make_dp_track_step(cfg: SlamConfig, K, extract_fn, mesh: Mesh):
@@ -50,11 +53,11 @@ def make_dp_track_step(cfg: SlamConfig, K, extract_fn, mesh: Mesh):
     divisible by the mesh size.  Returns (feats, TrackResult) with a leading
     axis over this process's sequences (all B on a one-process mesh), on
     the first shard's device; sequence b's result is the single-sequence
-    step's on sequence b's inputs."""
+    step's on sequence b's inputs, bit for bit."""
     steps = []
     for d in mesh.devices:
         fn = extract_fn[d] if isinstance(extract_fn, dict) else extract_fn
-        steps.append(track_step_mod.make_track_step(cfg, K, fn, device=d))
+        steps.append(track_step_mod.make_batched_track_step(cfg, K, fn, device=d))
 
     def run(imgs, poses, velocities, prev_feats, prev_geom, cand_pts, prev_crow=None):
         B = len(imgs)
@@ -63,13 +66,14 @@ def make_dp_track_step(cfg: SlamConfig, K, extract_fn, mesh: Mesh):
         per = B // mesh.size
         feats, results = [], []
         for i, (d, step) in enumerate(zip(mesh.devices, steps)):
-            for b in range((mesh.first + i) * per, (mesh.first + i + 1) * per):
-                state = [_take(x, b, d) for x in (poses, velocities, prev_feats, prev_geom,
-                                                  cand_pts)]
-                crow = None if prev_crow is None else prev_crow[b].to(d)
-                feat, res = step(imgs[b], *state, crow)
-                feats.append(feat)
-                results.append(res)
-        return _stack(feats, mesh.devices[0]), _stack(results, mesh.devices[0])
+            block = slice((mesh.first + i) * per, (mesh.first + i + 1) * per)
+            state = [_take(x, block, d)
+                     for x in (poses, velocities, prev_feats, prev_geom, cand_pts)]
+            crow = None if prev_crow is None else prev_crow[block].to(d)
+            feat, res = step(torch.as_tensor(imgs[block]).to(d), *state, crow)
+            feats.append(feat)
+            results.append(res)
+        return _cat(feats, mesh.devices[0]), _cat(results, mesh.devices[0])
 
+    run.steps = steps  # each shard's batched step (its .eager, its .graphs)
     return run

@@ -25,7 +25,10 @@ replays it:
   ``graph_path(*tensors)`` tells a caller which path a call takes, so that
   it can pad its inputs to fixed shapes where a graph will replay them.
 - A call made while the current stream is capturing runs ``fn``, which thus
-  becomes part of the outer graph (the extractor inside the fused step).
+  becomes part of the outer graph (the extractor inside the fused step); so
+  does a call inside a ``torch.func`` transform (its tensors are the
+  transform's wrappers: the extractor inside the vmapped multi-sequence
+  step).
 - There is no route around the graph on the card: a failed capture raises.
   Nothing captured may read back to the host (a ``.item()``, a device to
   host copy, a host-to-device copy from pageable memory): the capture runs
@@ -135,6 +138,12 @@ def _capturing():
     return torch.cuda.is_current_stream_capturing()
 
 
+def _transformed(leaves):
+    """Whether a leaf is a ``torch.func`` wrapper (a vmapped call)."""
+    wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+    return any(isinstance(t, torch.Tensor) and wrapped(t) for t in leaves)
+
+
 def _stream_key(device):
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -212,7 +221,8 @@ class Captured:
         leaves = []
         sig = _flatten((args, kwargs), leaves)
         device = _graph_device(leaves)
-        if device is None or getattr(_tls, "effects", None) is not None or _capturing():
+        if (device is None or getattr(_tls, "effects", None) is not None or _capturing()
+                or _transformed(leaves)):
             out = self.eager(*args, **kwargs)
             _tls.last = "eager"
             return out

@@ -137,11 +137,20 @@ Phases, each of which raises on failure (exit code != 0):
       at n_devices 2 and 8 (routed through _global_ba_mesh), against each
       other, finite and moved; the mean reprojection error before and after
       and each call's time beside the one-device global_bundle_adjust;
-   c. 4 sequences (the corridor's frames scaled by 1 - 0.05 b) over 4 shards
-      at the KITTI shape, 4 chained frames from phase 3's hand-built state
-      through multi_seq.make_dp_track_step: 48 masked_nn launches, nothing
-      reduced, each sequence bit for bit its single step; sequence-frames/s
-      on 1 and 4 shards;
+   c. multi_seq.make_dp_track_step at the KITTI shape over 4 chained frames
+      from phase 3's hand-built state (sequence b's frames darkened by
+      5% (b % 4) + 1% (b // 4)), each shard one batched step (torch.func.vmap
+      of the single step, one CUDA graph per shard and batch size): 4 shards
+      of one sequence, then one shard of 1, 4 and 16 sequences; in each run
+      3 masked_nn launches a frame per shard (48, 12, 12, 12), nothing
+      reduced, every sequence's features and result bit for bit its single
+      step, tracking held; ms a frame and sequence-frames/s of the batched
+      step beside the per-sequence loop (the single step once per sequence,
+      kept here only for the comparison), each graph's pool bytes; the
+      batched local-map search of the 4- and 16-sequence runs, one launch,
+      held bit for bit to its per-problem launches and each problem to the
+      plain version (check_k1), timed beside the B single launches and the
+      bound at B times the bytes;
    d. the trained ASDNet on one frame's 2000 patches over 4 shards against
       the whole batch;
    e. processes (this script run as ``--multihost-child``, started at the
@@ -552,12 +561,13 @@ def k1_bound_ms(args, pairs_in):
     read once, each output written once) over the memory rate, or the bf16
     dot of the pairs that pass the gates (what this data needs; a culling
     kernel does not evaluate the gate for every pair) over the bf16 peak,
-    whichever is larger.  The counts are the roofline module's, which
+    whichever is larger; a batched call's bytes are B problems'.  The counts are the roofline module's, which
     mfu_bench_torch.py's matcher rows use too."""
     from asdslam_torch.utils.roofline import H100, matcher_bytes, matcher_flops
 
-    (n, d), m = args[0].shape, args[1].shape[0]
-    t_bytes = matcher_bytes(n, m, d) / H100["bytes"]
+    (n, d), m = args[0].shape[-2:], args[1].shape[-2]
+    batch = args[0].shape[0] if args[0].ndim == 3 else 1  # a batched call's B problems
+    t_bytes = batch * matcher_bytes(n, m, d) / H100["bytes"]
     t_ops = matcher_flops(pairs_in, d) / H100["bf16"]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -2231,7 +2241,10 @@ MD_POSE_BAR, MD_POINT_BAR = 5e-3, 2e-2
 # tests/test_parallel.py::TestSystemMeshGBA's bars across mesh sizes
 GBA_POSE_BAR, GBA_POINT_BAR = 2e-4, 2e-3
 GBA_MESHES = (2, 8)
-N_SEQ, N_SEQ_FRAMES, SEQ_SHARDS = 4, 4, 4
+# 11c's runs as (shards, sequences): the reference test's four shards of one
+# sequence each, then one shard of B sequences for B = 1, 4 and 16
+SEQ_RUNS = ((4, 4), (1, 1), (1, 4), (1, 16))
+N_SEQ_FRAMES = 4
 DP_PATCH_SHARDS = 4
 CHILD_TIMEOUT = 300
 MD_K = np.array([[500.0, 0.0, 320.0], [0.0, 500.0, 240.0], [0.0, 0.0, 1.0]], np.float32)
@@ -2380,9 +2393,209 @@ def map_reproj_px(store, cfg):
     return float(np.linalg.norm(uv - store.kf_uv_t[kfs, feats], axis=1).mean())
 
 
-def phase11(cfg, device, card, loop_system):
+def seq_frame(frame_u8, b):
+    """Sequence b's frame: the corridor's, darkened by 5% a step of b % 4 and
+    1% a step of b // 4 (the reference test's 1 - 0.05 b for b < 4)."""
+    import torch
+
+    scale = 1 - 0.05 * (b % 4) - 0.01 * (b // 4)
+    return (frame_u8.to(torch.float32) * scale).clamp(0, 255).to(torch.uint8)
+
+
+def tile_tree(x, n):
+    """(Nested) tuples of tensors with a leading axis of ``n`` copies."""
+    import torch
+
+    if isinstance(x, tuple):
+        return type(x)(*(tile_tree(f, n) for f in x))
+    return torch.stack([x] * n)
+
+
+def phase11c(cfg, device, card, tracking):
+    """11c (module docstring), on ``build_tracking``'s ``tracking``: each of
+    SEQ_RUNS through
+    multi_seq.make_dp_track_step over N_SEQ_FRAMES chained frames from phase
+    3's hand-built state, held bit for bit to each sequence's single step;
+    the batched step timed against the per-sequence loop (the single step
+    once per sequence a frame, what the port ran before the batched step).
+    Returns (the numbers, masked_nn launches of the timed runs, {B: the
+    arguments of a one-shard run's batched local-map search})."""
+    import torch
+    from asdslam_torch.frontend import track_step as ts
+    from asdslam_torch.ops import masked_nn as k1
+    from asdslam_torch.parallel import dist, multi_seq
+
+    K, extract, frames_u8, poses, cand, state = tracking
+    n_max = max(n for _, n in SEQ_RUNS)
+    frames = [[seq_frame(frames_u8[i], b) for i in range(N_SEQ_FRAMES + 1)]
+              for b in range(n_max)]
+    keys = ("feat", "geom", "pose", "vel", "crow")
+    single = ts.make_track_step(cfg, K, extract, device=device)
+
+    def chain(b):
+        feat, geom, pose, vel, crow = (state[k] for k in keys)
+        out = []
+        for i in range(1, N_SEQ_FRAMES + 1):
+            feat, res = single(frames[b][i], pose, vel, feat, geom, cand, crow)
+            geom, pose, vel, crow = res.next_geom, res.pose, res.velocity, res.crow
+            out.append((feat, res))
+        return out
+
+    refs = [chain(b) for b in range(n_max)]  # warms and captures the single step too
+
+    def run_batched(step, n):
+        pose, vel, feat, geom = (tile_tree(state[k], n) for k in ("pose", "vel", "feat", "geom"))
+        crow, bcand, results = tile_tree(state["crow"], n), tile_tree(cand, n), []
+        for i in range(1, N_SEQ_FRAMES + 1):
+            imgs = torch.stack([frames[b][i] for b in range(n)])
+            feat, res = step(imgs, pose, vel, feat, geom, bcand, crow)
+            pose, vel, geom, crow = res.pose, res.velocity, res.next_geom, res.crow
+            results.append((feat, res))
+        return results
+
+    def first_local_map_search(step, n):
+        """The batched masked_nn arguments of the first frame's local-map
+        search, from the shard's eager (vmapped) step."""
+        calls, real = [], k1._run
+
+        def recorder(args, level_window):
+            calls.append(tuple(args) + (level_window,))
+            return real(args, level_window)
+
+        k1._run = recorder
+        try:
+            with torch.no_grad():
+                getattr(step.steps[0], "eager", step.steps[0])(
+                    torch.stack([frames[b][1] for b in range(n)]).to(device),
+                    *(tile_tree(state[k], n) for k in ("pose", "vel", "feat", "geom")),
+                    tile_tree(cand, n), tile_tree(state["crow"], n))
+        finally:
+            k1._run = real
+        if len(calls) != 3 or calls[2][0].shape[0] != n:
+            raise AssertionError(f"11c: the batched step made {len(calls)} masked_nn calls")
+        return calls[2]
+
+    runs, launches, batched_k1 = {}, 0, {}
+    for shards, n in SEQ_RUNS:
+        mesh = dist.make_mesh(shards, device)
+        step = multi_seq.make_dp_track_step(cfg, K, extract, mesh)
+        run_batched(step, n)  # each shard's step warms its graph
+        run_batched(step, n)  # and captures it
+        torch.cuda.synchronize()
+        k1.masked_nn.launches = 0
+        t1 = time.perf_counter()
+        batched = run_batched(step, n)
+        torch.cuda.synchronize()
+        batched_s = time.perf_counter() - t1
+        count = k1.masked_nn.launches
+        launches += count
+        if count != 3 * N_SEQ_FRAMES * shards:
+            raise AssertionError(f"11c {shards} shard(s) x {n // shards} sequences: masked_nn "
+                                 f"launched {count} times, not {3 * N_SEQ_FRAMES * shards}")
+        if mesh.reduced_elems != 0:
+            raise AssertionError(f"11c: the batched step reduced {mesh.reduced_elems}")
+        # the per-sequence loop on the same frames, the single step's graph warm
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for b in range(n):
+            chain(b)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t1
+        n_in = []
+        for b in range(n):
+            for i, ((feat, res), (bf, br)) in enumerate(zip(refs[b], batched)):
+                for name, x, y in (("feat", feat, multi_seq._take(bf, b, device)),
+                                   ("result", res, multi_seq._take(br, b, device))):
+                    if not all(torch.equal(u, v) for u, v in zip(tree_leaves(x), tree_leaves(y))):
+                        raise AssertionError(f"11c {shards} shard(s) x {n // shards}: sequence {b} "
+                                             f"frame {i + 1}: {name} differs from the single step")
+                if not torch.isfinite(res.pose).all():
+                    raise AssertionError(f"11c sequence {b} frame {i + 1}: non-finite pose")
+            n_in.append(int(refs[b][-1][1].n_inliers))
+        if min(n_in) < cfg.min_localmap_matches:
+            raise AssertionError(f"11c: tracking lost, last n_inliers {n_in}")
+        pools = [e["pool_bytes"] for s in step.steps if hasattr(s, "graphs")
+                 for e in s.graphs.stats()]
+        tag = f"{shards}x{n // shards}"
+        runs[tag] = dict(shards=shards, sequences=n, launches=count,
+                         launches_a_frame_per_shard=count / (N_SEQ_FRAMES * shards),
+                         batched_ms_a_frame=batched_s * 1e3 / N_SEQ_FRAMES,
+                         batched_seq_frames_per_s=n * N_SEQ_FRAMES / batched_s,
+                         loop_ms_a_frame=loop_s * 1e3 / N_SEQ_FRAMES,
+                         loop_seq_frames_per_s=n * N_SEQ_FRAMES / loop_s,
+                         pool_bytes=pools, last_n_inliers=n_in)
+        log(f"11c {shards} shard(s) x {n // shards} sequence(s) over {N_SEQ_FRAMES} chained frames "
+            f"at {cfg.image_width}x{cfg.image_height}: masked_nn launches {count} "
+            f"({count / (N_SEQ_FRAMES * shards):.0f} a frame per shard), nothing reduced, every "
+            f"sequence bit for bit its single step, last n_inliers {n_in}; batched step "
+            f"{batched_s * 1e3 / N_SEQ_FRAMES:.2f} ms a frame, "
+            f"{n * N_SEQ_FRAMES / batched_s:.3f} sequence-frames/s; per-sequence loop "
+            f"{loop_s * 1e3 / N_SEQ_FRAMES:.2f} ms a frame, {n * N_SEQ_FRAMES / loop_s:.3f} "
+            f"sequence-frames/s; graph pools {[round(p / 2**30, 3) for p in pools]} GiB [{card}]")
+        if shards == 1 and n > 1:
+            batched_k1[n] = first_local_map_search(step, n)
+        del step, batched
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(frames=N_SEQ_FRAMES, runs=runs, k1={}), launches, batched_k1
+
+
+def check_k1_batched(case, args):
+    """check_k1 on a batched call's arguments ([B, ...], one launch): the
+    batched launch bit for bit the B per-problem launches, and each problem
+    against the plain version as check_k1 holds it (the culling from the
+    batched launch's own summaries).  Returns check_k1's numbers over the
+    batch (pairs summed, the live share averaged)."""
+    import torch
+    from asdslam_torch.ops import masked_nn as k1
+
+    n = args[0].shape[0]
+    (idx, best, second), prep = k1.masked_nn_tiles(*args)
+    errs, pairs, shares = [], 0, []
+    for b in range(n):
+        one = tuple(a[b] for a in args[:9]) + (args[9],)
+        single = k1.masked_nn_tiles(*one)[0]
+        for name, x, y in zip(("idx", "best", "second"), (idx[b], best[b], second[b]), single):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{case}: problem {b}'s {name} differs from its own launch")
+        err, pairs_in, share = check_k1(f"{case} problem {b}", one)
+        gated = k1.gate_plain(*one[2:])
+        culled, _ = k1.culled_gated_pairs(k1.Prepared(
+            prep.perm_a[b], prep.perm_b[b], k1.TileSummary(*(f[b] for f in prep.rows)),
+            k1.TileSummary(*(f[b] for f in prep.cols))), gated, one[9])
+        if culled:
+            raise AssertionError(f"{case}: the batched launch culls {culled} gated-in pairs of "
+                                 f"problem {b}")
+        errs.append(err)
+        pairs += pairs_in
+        shares.append(share)
+    log(f"K1 {case}: B={n} N={args[0].shape[1]} M={args[1].shape[1]} d={args[0].shape[2]}, one "
+        f"launch bit for bit its {n} per-problem launches, each within check_k1's bars of the "
+        f"plain version, gated-in pairs {pairs}")
+    return max(errs), pairs, float(np.mean(shares))
+
+
+def batched_k1_times(args, pairs_in, card):
+    """CUDA-event ms of one batched launch and of its B per-problem launches
+    (whole wrapper calls), beside the bound at B times the bytes and the
+    batch's gated-in pairs."""
+    from asdslam_torch.ops import masked_nn as k1
+
+    n = args[0].shape[0]
+    per = [tuple(a[b] for a in args[:9]) + (args[9],) for b in range(n)]
+    batched_ms = time_ms(lambda: k1.masked_nn(*args), 20)
+    singles_ms = time_ms(lambda: [k1.masked_nn(*p) for p in per], 20)
+    bound, bound_by = k1_bound_ms(args, pairs_in)
+    log(f"K1 11c local-map search B={n}: one batched launch {batched_ms:.4f} ms, {n} single "
+        f"launches {singles_ms:.4f} ms, bound {bound:.5f} ms ({bound_by}) [{card}]")
+    return dict(batched_ms=batched_ms, singles_ms=singles_ms, bound_ms=bound,
+                bound_by=bound_by, gated_in_pairs=pairs_in)
+
+
+def phase11(cfg, device, card, loop_system, errs, k1_cases):
     """11a-11e (module docstring).  ``loop_system`` is phase 6's first
-    default-configuration System, after its loop.  Returns (the numbers
+    default-configuration System, after its loop.  Adds 11c's batched
+    local-map searches to ``k1_cases`` / ``errs``.  Returns (the numbers
     for the multi_device line, 11c's masked_nn launches)."""
     import copy
     import tempfile
@@ -2491,77 +2704,16 @@ def phase11(cfg, device, card, loop_system):
 
             # ---- 11c: multi-sequence tracking at full width ---------------- #
             t0 = time.perf_counter()
-            K, extract, frames_u8, poses, cand, state = build_tracking(cfg, device)
-            seq_frames = [[(frames_u8[i].to(torch.float32) * (1 - 0.05 * b)).clamp(0, 255)
-                           .to(torch.uint8) for i in range(N_SEQ_FRAMES + 1)]
-                          for b in range(N_SEQ)]
-
-            def tile(x):
-                if isinstance(x, tuple):
-                    return type(x)(*(tile(f) for f in x))
-                return torch.stack([x] * N_SEQ)
-
-            bstate0 = [tile(state[k]) for k in ("pose", "vel", "feat", "geom")]
-            bcand, bcrow0 = tile(cand), tile(state["crow"])
-
-            def run_batched(step):
-                pose, vel, feat, geom = bstate0
-                crow, results = bcrow0, []
-                for i in range(1, N_SEQ_FRAMES + 1):
-                    imgs = torch.stack([seq_frames[b][i] for b in range(N_SEQ)])
-                    feat, res = step(imgs, pose, vel, feat, geom, bcand, crow)
-                    pose, vel, geom, crow = res.pose, res.velocity, res.next_geom, res.crow
-                    results.append((feat, res))
-                return results
-
-            fps = {}
-            for n in (1, SEQ_SHARDS):
-                mesh = dist.make_mesh(n, device)
-                step = multi_seq.make_dp_track_step(cfg, K, extract, mesh)
-                run_batched(step)  # each shard's step warms and captures its graph
-                torch.cuda.synchronize()
-                if n == SEQ_SHARDS:
-                    k1.masked_nn.launches = 0
-                t1 = time.perf_counter()
-                batched = run_batched(step)
-                torch.cuda.synchronize()
-                fps[n] = N_SEQ * N_SEQ_FRAMES / (time.perf_counter() - t1)
-                if n == SEQ_SHARDS:
-                    launches = k1.masked_nn.launches
-                    if launches != 3 * N_SEQ * N_SEQ_FRAMES:
-                        raise AssertionError(f"11c: masked_nn launched {launches} times, not "
-                                             f"{3 * N_SEQ * N_SEQ_FRAMES}")
-                    if mesh.reduced_elems != 0:
-                        raise AssertionError(f"11c: the batched step reduced {mesh.reduced_elems}")
-            single = ts.make_track_step(cfg, K, extract, device=device)
-            n_in = []
-            for b in range(N_SEQ):
-                feat, geom, pose, vel, crow = (state[k] for k in ("feat", "geom", "pose", "vel",
-                                                                  "crow"))
-                for i in range(1, N_SEQ_FRAMES + 1):
-                    feat, res = single(seq_frames[b][i], pose, vel, feat, geom, cand, crow)
-                    geom, pose, vel, crow = res.next_geom, res.pose, res.velocity, res.crow
-                    bf, br = batched[i - 1]
-                    pairs = (("feat", feat, multi_seq._take(bf, b, device)),
-                             ("result", res, multi_seq._take(br, b, device)))
-                    for name, x, y in pairs:
-                        if not all(torch.equal(u, v)
-                                   for u, v in zip(tree_leaves(x), tree_leaves(y))):
-                            raise AssertionError(f"11c sequence {b} frame {i}: {name} "
-                                                 f"differs from the single step")
-                    if not torch.isfinite(res.pose).all():
-                        raise AssertionError(f"11c sequence {b} frame {i}: non-finite pose")
-                n_in.append(int(res.n_inliers))
-            if min(n_in) < cfg.min_localmap_matches:
-                raise AssertionError(f"11c: tracking lost, last n_inliers {n_in}")
-            out["11c"] = dict(sequences=N_SEQ, frames=N_SEQ_FRAMES, shards=SEQ_SHARDS,
-                              launches=launches, seq_frames_per_s=fps, last_n_inliers=n_in,
-                              seconds=time.perf_counter() - t0)
-            log(f"11c {N_SEQ} sequences x {N_SEQ_FRAMES} chained frames at {cfg.image_width}x"
-                f"{cfg.image_height} over {SEQ_SHARDS} shards: masked_nn launches {launches}, "
-                f"nothing reduced, every sequence bit for bit its single step, last n_inliers "
-                f"{n_in}; sequence-frames/s " + ", ".join(f"{n} shard(s) {v:.3f}"
-                                                         for n, v in fps.items()) + f" [{card}]")
+            tracking = build_tracking(cfg, device)
+            frames_u8 = tracking[2]
+            out["11c"], launches, batched_k1 = phase11c(cfg, device, card, tracking)
+            out["11c"]["seconds"] = time.perf_counter() - t0
+            for n_seq, args in batched_k1.items():
+                case = f"11c batched local-map search B={n_seq}"
+                err, pairs_in, share = check_k1_batched(case, args)
+                errs.append(err)
+                k1_cases[case] = (args, pairs_in, share)
+                out["11c"]["k1"][n_seq] = batched_k1_times(args, pairs_in, card)
 
             # ---- 11d: the data-parallel descriptor ------------------------- #
             from asdslam_torch.frontend.extractor import make_extractor
@@ -4075,7 +4227,7 @@ def main():
     stamp("phase 10")
     # ---- 11. the multi-device path ----------------------------------------- #
     t0 = time.perf_counter()
-    multi_device, launches_multi = phase11(cfg, device, card, loop_system)
+    multi_device, launches_multi = phase11(cfg, device, card, loop_system, errs, k1_cases)
     multi_device["seconds"] = time.perf_counter() - t0
     log(json.dumps({"multi_device": multi_device, "card": card}))
     stamp("phase 11")
@@ -4110,10 +4262,13 @@ def main():
                  "loop guided search", "loop fuse", "relocalization search",
                  "EuRoC proxy local-map search", "trained weights local-map search",
                  "KITTI proxy local-map search", "motion 2000x2000x256 d256", "local-map 8192x2000x256 d256",
-                 "ORB motion 2000x2000x256", "ORB local-map 8192x2000x256"):
+                 "ORB motion 2000x2000x256", "ORB local-map 8192x2000x256",
+                 "11c batched local-map search B=4", "11c batched local-map search B=16"):
         args, pairs_in, share = k1_cases[case]
         bound, bound_by = k1_bound_ms(args, pairs_in)
-        shapes.append(dict(shape=case, n=args[0].shape[0], m=args[1].shape[0], d=args[0].shape[1],
+        batch = args[0].shape[0] if args[0].ndim == 3 else 1  # one launch for B problems
+        shapes.append(dict(shape=case, batch=batch, n=args[0].shape[-2], m=args[1].shape[-2],
+                           d=args[0].shape[-1],
                            ms=time_ms(lambda: k1.masked_nn(*args), 50),
                            plain_ms=time_ms(lambda: k1.masked_nn_plain(*args), 5),
                            bound_ms=bound, bound_by=bound_by,
