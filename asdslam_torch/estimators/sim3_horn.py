@@ -35,6 +35,7 @@ from asdslam_torch.estimators import linalg
 from asdslam_torch.estimators.twoview import pick
 from asdslam_torch.geometry import se3, sim3
 from asdslam_torch.ops.match import _top_indices
+from asdslam_torch.utils import graphs
 
 
 def horn_sim3(P1, P2, w=None):
@@ -199,8 +200,8 @@ def ransac_sim3(g, P1, P2, uv1, uv2, valid, K, chi2_px1, chi2_px2,
                       inliers=inl_f, n_inliers=n)
 
 
-def optimize_sim3_align(X_src, X_dst, valid, iters: int = 20,
-                        huber_delta: float = 0.5):
+def _optimize_sim3_align(X_src, X_dst, valid, iters: int = 20,
+                         huber_delta: float = 0.5):
     """3D-3D Sim3 alignment of matched point sets — Optimizer::
     OptimizeSim3Align parity (src/vslam/src/Optimizer.cc:1196, 1355).
 
@@ -247,3 +248,7 @@ def optimize_sim3_align(X_src, X_dst, valid, iters: int = 20,
     r = residuals(s, R, t)
     inliers = valid & (torch.linalg.norm(r, dim=1) <= huber_delta)
     return s, R, t, inliers
+
+
+# One program, as the reference jits it (asdslam_tpu/estimators/sim3_horn.py:202)
+optimize_sim3_align = graphs.captured(_optimize_sim3_align, "sim3_align")

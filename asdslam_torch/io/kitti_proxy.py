@@ -26,6 +26,7 @@ import torch
 
 from asdslam_torch.geometry import se3
 from asdslam_torch.io.synthetic import _hash01
+from asdslam_torch.utils import graphs
 
 # the KITTI ground-truth trajectories and camera files of the reference
 # repository (ASD-SLAM), in its layout under this repository's reference/
@@ -174,14 +175,35 @@ def render_boxes(pose7, K, bmin, bmax, salt, height: int, width: int,
     return_depth: also return the per-pixel ray-hit parameter t (distance
     along the unit-z-normalized camera ray; BIG where the sky is hit)."""
     dev = pose7.device
-    K = torch.as_tensor(K, dtype=torch.float32).to(dev)
+    return _render_boxes(_on(pose7, dev), torch.as_tensor(K, dtype=torch.float32).to(dev),
+                         *_boxes_on(bmin, bmax, salt, dev), height, width, tex_scale,
+                         return_depth)
+
+
+def _on(pose7, dev):
+    return torch.as_tensor(pose7, dtype=torch.float32).to(dev)
+
+
+def _boxes_on(bmin, bmax, salt, dev):
+    """The boxes (numpy or tensors) as f32 corners and int64 salts on
+    ``dev``: copied here, outside the captured programs, which may not copy
+    from the host."""
+    return (torch.as_tensor(bmin, dtype=torch.float32).to(dev),
+            torch.as_tensor(bmax, dtype=torch.float32).to(dev),
+            torch.as_tensor(salt).to(dev).to(torch.int64))
+
+
+def _boxes_frame(pose7, K, bmin, bmax, salt, height: int, width: int, tex_scale: float,
+                 return_depth: bool):
+    """``render_boxes`` on device tensors: the pinhole grid, then the
+    ray-caster."""
+    dev = pose7.device
     v, u = torch.meshgrid(torch.arange(height, dtype=torch.float32, device=dev),
                           torch.arange(width, dtype=torch.float32, device=dev),
                           indexing="ij")
     xn = (u - K[0, 2]) / K[0, 0]
     yn = (v - K[1, 2]) / K[1, 1]
-    return raycast_grid(pose7, xn, yn, bmin, bmax, salt, tex_scale=tex_scale,
-                        return_depth=return_depth)
+    return _raycast(pose7, xn, yn, bmin, bmax, salt, tex_scale, return_depth)
 
 
 # ray-box pairs a chunk of raycast_grid holds: ~12 chunks of 8 boxes a
@@ -205,7 +227,14 @@ def raycast_grid(pose7, xn, yn, bmin, bmax, salt, tex_scale: float = 0.35,
     and salt [B] are the boxes (numpy or tensors); the first box along each
     ray wins, the earlier box on a tie, as the reference's scan."""
     dev = xn.device
-    R, t = se3.pose_unpack(torch.as_tensor(pose7, dtype=torch.float32).to(dev))
+    return _raycast_grid(_on(pose7, dev), xn, yn, *_boxes_on(bmin, bmax, salt, dev),
+                         tex_scale, return_depth)
+
+
+def _raycast(pose7, xn, yn, bmin, bmax, salt, tex_scale: float, return_depth: bool):
+    """``raycast_grid`` on device tensors (``_boxes_on``'s boxes)."""
+    dev = xn.device
+    R, t = se3.pose_unpack(pose7)
     # R^T t and R^T d_cam as sums of elementwise products in a fixed order,
     # each rounded on its own, so that the card's frames are the CPU's: a
     # matrix product rounds as its library pleases (cuBLAS and the CPU's
@@ -215,10 +244,9 @@ def raycast_grid(pose7, xn, yn, bmin, bmax, salt, tex_scale: float = 0.35,
     d = torch.stack([xn * R[0, i] + yn * R[1, i] + R[2, i] for i in range(3)], dim=-1)
     inv_d = 1.0 / torch.where(d.abs() < 1e-9, torch.full_like(d, 1e-9), d)
     inv_d = inv_d.permute(2, 0, 1)                               # [3, H, W]
-    # [B, 3] box corners relative to the camera, on the device
-    lo = torch.as_tensor(bmin, dtype=torch.float32).to(dev) - c
-    hi = torch.as_tensor(bmax, dtype=torch.float32).to(dev) - c
-    salt = torch.as_tensor(salt).to(dev).to(torch.int64)
+    # [B, 3] box corners relative to the camera
+    lo = bmin - c
+    hi = bmax - c
 
     # The nearest hit over chunks of boxes, about CHUNK_PAIRS ray-box pairs
     # each: min() takes the first box of equal t within a chunk and the
@@ -270,6 +298,13 @@ def raycast_grid(pose7, xn, yn, bmin, bmax, salt, tex_scale: float = 0.35,
     if return_depth:
         return img, t_hit
     return img
+
+
+# The renderers as programs (the reference jits both,
+# asdslam_tpu/io/kitti_proxy.py:170 and :186): a sequence's box count is
+# fixed, so one key serves its frames (two with and without depth)
+_render_boxes = graphs.captured(_boxes_frame, "render_boxes")
+_raycast_grid = graphs.captured(_raycast, "raycast_grid")
 
 
 # --------------------------------------------------------------------------- #

@@ -19,6 +19,7 @@ import torch
 
 from asdslam_torch.geometry import camera as camera_mod
 from asdslam_torch.geometry import se3
+from asdslam_torch.utils import graphs
 
 _M32 = 0xFFFFFFFF
 
@@ -76,9 +77,22 @@ def render_frame(pose7, K, height: int, width: int, scene: Scene = Scene(),
     dist: optional radtan (k1, k2, p1, p2): renders the scene as seen
     through a distorting lens.  Pixel (u, v) carries DISTORTED normalized
     coords, so the true ray direction is their radtan inverse (what
-    cv::undistortPoints would recover)."""
+    cv::undistortPoints would recover).
+
+    The intrinsics and the lens go to the pose's device here, outside the
+    captured program (inside a capture a host-to-device copy is refused)."""
     dev = pose7.device
     K = torch.as_tensor(K, dtype=torch.float32).to(dev)
+    lens = None
+    if dist is not None and any(abs(k) > 1e-12 for k in dist):
+        lens = camera_mod.Camera.create(1.0, 1.0, 0.0, 0.0, *dist, device=dev)
+    return _render_frame(pose7, K, height, width, scene, lens)
+
+
+def _frame(pose7, K, height: int, width: int, scene: Scene, lens):
+    """``render_frame`` on device tensors: ``lens`` a unit ``Camera`` of the
+    radtan coefficients, or None for a pinhole."""
+    dev = pose7.device
     R, t = se3.pose_unpack(pose7)
     c = -(R.T @ t)  # camera centre in world
     v, u = torch.meshgrid(torch.arange(height, dtype=torch.float32, device=dev),
@@ -86,9 +100,8 @@ def render_frame(pose7, K, height: int, width: int, scene: Scene = Scene(),
                           indexing="ij")
     xn = (u - K[0, 2]) / K[0, 0]
     yn = (v - K[1, 2]) / K[1, 1]
-    if dist is not None and any(abs(k) > 1e-12 for k in dist):
-        cam = camera_mod.Camera.create(1.0, 1.0, 0.0, 0.0, *dist, device=dev)
-        und = camera_mod.undistort_normalized(cam, torch.stack([xn, yn], dim=-1))
+    if lens is not None:
+        und = camera_mod.undistort_normalized(lens, torch.stack([xn, yn], dim=-1))
         xn, yn = und[..., 0], und[..., 1]
     d_cam = torch.stack([xn, yn, torch.ones_like(xn)], dim=-1)
     d = d_cam @ R  # world ray directions (R^T d_cam)
@@ -108,6 +121,11 @@ def render_frame(pose7, K, height: int, width: int, scene: Scene = Scene(),
     # mild distance shading for photometric variety
     img = img * (1.0 / (1.0 + 0.015 * t_hit))
     return torch.clamp(img, 0.0, 1.0)
+
+
+# The renderer as one program (the reference jits render_frame,
+# asdslam_tpu/io/synthetic.py:55): a key per shape, scene and lens
+_render_frame = graphs.captured(_frame, "render_frame")
 
 
 def _ray_hits(c, d, scene: Scene):

@@ -656,7 +656,11 @@ class LoopCloser:
         closer's device type: the point-major layout and its gather tables
         once, then ``loop_gba_iters`` damped Gauss-Newton steps of the
         distributed Schur solver, on the calling thread's current stream.
-        The step runs in float64, so the result does not depend on the mesh
+        Each step is two captured programs a device (``dist.pm_local_blocks``
+        and ``dist.pm_update``) around the eager ``Mesh.psum``; the loop's
+        steps share one key a device, so on the card the first step warms
+        the programs, the second captures them and the rest replay.  The
+        step runs in float64, so the result does not depend on the mesh
         size (``parallel/dist.py``)."""
         cfg = self.cfg
         mesh = dist.make_mesh(cfg.n_devices, device=self.device)

@@ -225,10 +225,12 @@ class ASDNetTrain(nn.Module):
 
     @torch.no_grad()
     def update_running_stats(self, stats, momentum: float = 0.1):
-        """running = (1 - momentum) * running + momentum * batch, per layer."""
+        """running = (1 - momentum) * running + momentum * batch, per layer,
+        in place: a captured training step writes the buffers the module
+        holds."""
         for i, (bm, bv) in enumerate(zip(*stats)):
             for name, b in ((f"bn_mean{i}", bm), (f"bn_var{i}", bv)):
-                setattr(self, name, (1 - momentum) * getattr(self, name) + momentum * b)
+                getattr(self, name).mul_(1 - momentum).add_(momentum * b)
 
     def params_to_jax(self) -> Dict[str, List[np.ndarray]]:
         """The parameters in the reference's layout, keys in the order

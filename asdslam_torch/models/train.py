@@ -11,7 +11,9 @@ protocol, ASDNet/ASDNet/ASDNet.py):
 - ``augment_pair``: per-sample rot90 then column flip, then a random-resized
   crop (bilinear), the same transform on both members of a pair;
 - ``train_step``: one SGD step (``c - lr * (g + 1e-4 c)`` on the convs, the
-  running BN statistics from the anchor pass); ``lr_schedule``, ``fpr95``;
+  running BN statistics from the anchor pass), the reference's jitted
+  program as one CUDA graph on the card (``graphs.captured(..., grad=True)``:
+  forward, backward and update); ``lr_schedule``, ``lr_table``, ``fpr95``;
 - ``make_batch``: matched pairs cut from the synthetic texture world;
 - the UBC PhotoTour readers (``load_phototour``, ``read_phototour_pairs``,
   ``phototour_batch``).
@@ -34,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from asdslam_torch.models import asdnet
+from asdslam_torch.utils import graphs
 
 
 def l2_distance_matrix_sqrt(a, b, eps=1e-6):
@@ -154,18 +157,21 @@ def draw_step(generator: torch.Generator, batch: int) -> StepDraws:
                      asdnet.draw_dropout_mask(generator, batch))
 
 
-def make_optimizer(model: asdnet.ASDNetTrain) -> torch.optim.SGD:
-    """SGD on the convs with weight decay 1e-4: with the step's lr it takes
-    ``c - lr * (g + 1e-4 c)``, the reference's update."""
-    return torch.optim.SGD(model.conv.parameters(), lr=0.0, weight_decay=1e-4)
+# The weight decay of the reference's SGD update
+WEIGHT_DECAY = 1e-4
 
 
-def train_step(model: asdnet.ASDNetTrain, optimizer, batch_a, batch_p, lr: float,
-               draws: StepDraws, adaptive: bool = True, decor: bool = True, gor: bool = True,
-               augment: bool = True):
-    """One SGD step on a batch of matched patch pairs [B, 32, 32] x2; the
-    running BN statistics move to the anchor pass's batch statistics.
-    Returns the loss (a 0-d tensor on the device, not fetched)."""
+def _train_step(model: asdnet.ASDNetTrain, batch_a, batch_p, lr, draws: StepDraws,
+                adaptive: bool = True, decor: bool = True, gor: bool = True,
+                augment: bool = True):
+    """One SGD step on a batch of matched patch pairs [B, 32, 32] x2 with
+    the learning rate ``lr`` (a 0-d tensor on the batch's device): the
+    convs take ``c - lr * (g + 1e-4 c)``, the reference's update, in place;
+    the running BN statistics move to the anchor pass's batch statistics,
+    in place.  Returns the loss (a 0-d tensor on the device, not fetched).
+
+    The gradients come from ``torch.autograd.grad``: inside a capture they
+    are the graph's, and no ``.grad`` is left on the convs."""
     ba, bp = augment_pair(batch_a, batch_p, draws.augment) if augment else (batch_a, batch_p)
     out_a, stats = model(ba, train=True, dropout_mask=draws.mask_a)
     out_p, _ = model(bp, train=True, dropout_mask=draws.mask_p)
@@ -175,19 +181,34 @@ def train_step(model: asdnet.ASDNetTrain, optimizer, batch_a, batch_p, lr: float
     if gor:
         # against the positives rolled by one: random non-matching descriptors
         loss = loss + global_orthogonal_regularization(out_a, torch.roll(out_p, 1, dims=0))
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    for group in optimizer.param_groups:
-        group["lr"] = lr
-    optimizer.step()
+    convs = list(model.conv)
+    grads = torch.autograd.grad(loss, convs)
+    with torch.no_grad():
+        for c, g in zip(convs, grads):
+            c.sub_(lr * (g + WEIGHT_DECAY * c))
     model.update_running_stats(stats)
     return loss.detach()
+
+
+# The reference jits its step (asdslam_tpu/models/train.py:131) with
+# adaptive / decor / gor / augment static: here they, and the model, are
+# constant leaves of the key, so a run keeps at most two graphs (adaptive
+# switches once); the batch, lr and the draws are inputs.
+train_step = graphs.captured(_train_step, "train_step", grad=True)
 
 
 def lr_schedule(step, total_steps, base_lr=10.0) -> float:
     """Linear decay to 0 (ASDNet.py:539-548), rounded as the reference's f32
     evaluation rounds it."""
     return float(np.float32(base_lr) * np.float32(max(0.0, 1.0 - step / total_steps)))
+
+
+def lr_table(total_steps, base_lr, device):
+    """``lr_schedule`` of every step as one f32 tensor on ``device``: step
+    ``i``'s learning rate is ``lr_table(...)[i]``, a 0-d tensor, so that no
+    step copies its rate from the host or keys a graph of its own."""
+    return torch.tensor([lr_schedule(i, total_steps, base_lr) for i in range(total_steps)],
+                        dtype=torch.float32, device=device)
 
 
 def fpr95(dists_pos, dists_neg):
@@ -392,11 +413,11 @@ def train_asdnet(seed: int, n_steps: int = 200, batch_size: int = 256,
     seeds = asdnet.draw_init_seeds(torch.Generator().manual_seed(seed))
     model = asdnet.ASDNetTrain(asdnet.init_params(seeds)).to(device)
     generator = torch.Generator(device).manual_seed(seed + 1)
-    opt = make_optimizer(model)
+    lrs = lr_table(n_steps, base_lr, device)
     adaptive_until = adaptive_until if adaptive_until is not None else n_steps // 2
     for step in range(n_steps):
         a, p = make_batch(draw_batch(generator, batch_size))
-        train_step(model, opt, a.to(device), p.to(device), lr_schedule(step, n_steps, base_lr),
+        train_step(model, a.to(device), p.to(device), lrs[step],
                    draw_step(generator, batch_size), adaptive=step < adaptive_until)
     return model
 

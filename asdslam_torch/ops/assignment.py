@@ -13,12 +13,15 @@ pass ``-dist``.
   highest-scoring (row, col) pair is committed, both are retired, repeat.
 
 The reference computes both with XLA ops (no Pallas kernel), and so does
-the port with torch ops on the tensors' device.
+the port with torch ops on the tensors' device; the greedy engine, which
+the reference jits, is one captured program on the card.
 """
 
 from __future__ import annotations
 
 import torch
+
+from asdslam_torch.utils import graphs
 
 NEG = float("-inf")
 
@@ -37,8 +40,8 @@ def non_exclusive_assignment(score: torch.Tensor, valid: torch.Tensor,
     return torch.where(ok, idx, -1).to(torch.int32), best, ok
 
 
-def greedy_assignment(score: torch.Tensor, valid: torch.Tensor, min_score: float = NEG,
-                      max_assignments: int = 0):
+def _greedy(score: torch.Tensor, valid: torch.Tensor, min_score: float = NEG,
+            max_assignments: int = 0):
     """Globally best-first one-to-one assignment (MatchingEngineGreedy).
 
     score: [N, M] (higher better), valid: [N, M] admissible pairs.
@@ -69,3 +72,9 @@ def greedy_assignment(score: torch.Tensor, valid: torch.Tensor, min_score: float
         col_of_row = torch.where(retire_row, j.to(torch.int32), col_of_row)
         s = torch.where(retire_row[:, None] | retire_col[None, :], NEG, s)
     return col_of_row, col_of_row >= 0
+
+
+# The greedy engine as one program (the reference jits its while_loop,
+# asdslam_tpu/ops/assignment.py:46): its trips read nothing back, so the
+# whole fixed-trip loop is one graph a shape
+greedy_assignment = graphs.captured(_greedy, "greedy_assignment")

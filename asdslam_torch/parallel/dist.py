@@ -62,6 +62,7 @@ import torch.distributed as tdist
 from asdslam_torch.backend import ba
 from asdslam_torch.estimators.linalg import inv3x3
 from asdslam_torch.geometry import se3
+from asdslam_torch.utils import graphs
 
 
 class Mesh:
@@ -212,9 +213,20 @@ def dp_descriptor_fn(params, mesh: Mesh):
 
     @torch.no_grad()
     def run(patches):
-        return mesh.gather([nets[s.device](s) for s in shard_to_mesh(mesh, patches, "data")])
+        return mesh.gather([shard_descriptors(nets[s.device], s)
+                            for s in shard_to_mesh(mesh, patches, "data")])
 
     return run
+
+
+def _shard_descriptors(net, patches):
+    return net(patches)
+
+
+# One shard's ASDNet inference (the reference jits the data-parallel
+# descriptor, asdslam_tpu/parallel/dist.py:88): the net is a constant leaf
+# of the key, so the shards of one device share one graph.
+shard_descriptors = graphs.captured(_shard_descriptors, "dp_descriptor")
 
 
 # --------------------------------------------------------------------------- #
@@ -323,18 +335,19 @@ def _seg(x, table):
 ACC = torch.float64
 
 
-def make_pm_step(mesh: Mesh, n_opt: int, lam: float = 1e-4):
-    """The point-major BA step over a mesh: ``step(poses7, points_pm,
-    obs_pm, K)`` with poses7 [C, 7] replicated (one tensor), points_pm and
-    obs_pm this process's shards (``shard_to_mesh(mesh, points_pad,
-    "data")``, ``shard_observations``).  Returns (new_poses7 on the first
-    shard's device, new points shards).  Every landmark block stays on its
-    shard; the four camera-side blocks go through ``mesh.psum``."""
-    def local_blocks(poses7, points_l, o: ShardObs, K):
-        obs_l = ba.Obs(cam_idx=o.cam_idx, pt_idx=o.pt_idx, uv=o.uv,
-                       inv_sigma2=o.inv_s2, valid=o.valid)
+def _pm_local_blocks(poses7, points, obs, K, n_opt: int, lam: float):
+    """The step's first half on one device, for its shards in shard order
+    (``points`` and ``obs`` lists): per shard the four camera-side partials
+    that ``mesh.psum`` reduces, (H_cc, g_c, S, S's rhs), and the landmark
+    blocks the back-substitution keeps, (W, H_pp^-1, g_p)."""
+    poses7, K = poses7.to(ACC), K.to(ACC)
+    parts, keep = [], []
+    for points_l, o in zip(points, obs):
+        points_l = points_l.to(ACC)
+        obs_l = ba.Obs(cam_idx=o.cam_idx, pt_idx=o.pt_idx, uv=o.uv.to(ACC),
+                       inv_sigma2=o.inv_s2.to(ACC), valid=o.valid)
         r, Jc, Jp, _ = ba._project_residuals(poses7, points_l, obs_l, K)
-        w = o.inv_s2 * o.valid.to(r.dtype)
+        w = obs_l.inv_sigma2 * o.valid.to(r.dtype)
         wc = w * (o.cam_idx < n_opt).to(w.dtype)
 
         # camera blocks: partial, summed over the mesh, O(C) payload
@@ -359,48 +372,85 @@ def make_pm_step(mesh: Mesh, n_opt: int, lam: float = 1e-4):
         camB = _seg(W, o.pair_obs).reshape(Pl, n_opt, 6, 3)
         S = torch.einsum("paij,pbkj->abik", camA, camB)              # [C, C, 6, 6]
         gp_red = torch.einsum("paij,pj->ai", camA, gp)               # [C, 6]
-        return (Hcc, gc, S, gp_red), (W, Hpp_inv, gp)
+        parts.append((Hcc, gc, S, gp_red))
+        keep.append((W, Hpp_inv, gp))
+    return parts, keep
 
-    def solve(Hcc, gc, S, gp_red):
-        dev = Hcc.device
-        dcc = torch.clamp(torch.diagonal(Hcc, dim1=1, dim2=2), min=1e-6)
-        Hcc_d = Hcc + lam * dcc[:, :, None] * torch.eye(6, dtype=ACC, device=dev)
-        S_red = (torch.block_diag(*Hcc_d.unbind(0))
-                 - S.permute(0, 2, 1, 3).reshape(n_opt * 6, n_opt * 6)
-                 + 1e-8 * torch.eye(n_opt * 6, dtype=ACC, device=dev))
-        rhs = (gc - gp_red).reshape(-1, 1)
-        # the reference's jnp.linalg.solve: no error check (a singular
-        # system gives non-finite steps), so no wait on the device
-        return -torch.linalg.solve_ex(S_red, rhs)[0].reshape(n_opt, 6)
 
+def _pm_update(sums, points, obs, keep, poses7, n_opt: int, lam: float):
+    """The step's second half on one device: the replicated solve of the
+    reduced camera system from the mesh's ``sums``, the landmark
+    back-substitution of this device's shards and, where ``poses7`` is
+    given (the first shard's device), the poses' retraction.  Returns (new
+    points of each shard, the new poses or None)."""
+    Hcc, gc, S, gp_red = sums
+    dev = Hcc.device
+    dcc = torch.clamp(torch.diagonal(Hcc, dim1=1, dim2=2), min=1e-6)
+    Hcc_d = Hcc + lam * dcc[:, :, None] * torch.eye(6, dtype=ACC, device=dev)
+    S_red = (torch.block_diag(*Hcc_d.unbind(0))
+             - S.permute(0, 2, 1, 3).reshape(n_opt * 6, n_opt * 6)
+             + 1e-8 * torch.eye(n_opt * 6, dtype=ACC, device=dev))
+    rhs = (gc - gp_red).reshape(-1, 1)
+    # the reference's jnp.linalg.solve: no error check (a singular system
+    # gives non-finite steps), so no wait on the device
+    dc = -torch.linalg.solve_ex(S_red, rhs)[0].reshape(n_opt, 6)
+    new_points = []
+    for points_l, o, (W, Hpp_inv, gp) in zip(points, obs, keep):
+        # landmark back-substitution: fully local
+        safe_cam = torch.clamp(o.cam_idx, max=n_opt - 1)
+        WT_dc = _seg(torch.einsum("oij,oi->oj", W, dc[safe_cam]), o.pt_obs)
+        dp = torch.einsum("pij,pj->pi", Hpp_inv, gp + WT_dc)
+        new_points.append((points_l.to(ACC) - dp).to(points_l.dtype))
+    if poses7 is None:
+        return new_points, None
+    new_opt = se3.pose_retract(poses7[:n_opt].to(ACC), dc).to(poses7.dtype)
+    return new_points, torch.cat([new_opt, poses7[n_opt:]], dim=0)
+
+
+# The step's two halves, each one program a device, replayed from CUDA
+# graphs on the card (the reference jits the whole shard_map'ed step,
+# asdslam_tpu/parallel/dist.py:231); between them ``Mesh.psum`` runs
+# eagerly: over gloo it goes through the host, which no graph can hold.
+# A loop's steps share their shapes, so one key a device serves them all.
+pm_local_blocks = graphs.captured(_pm_local_blocks, "pm_local_blocks")
+pm_update = graphs.captured(_pm_update, "pm_update")
+
+
+def make_pm_step(mesh: Mesh, n_opt: int, lam: float = 1e-4):
+    """The point-major BA step over a mesh: ``step(poses7, points_pm,
+    obs_pm, K)`` with poses7 [C, 7] replicated (one tensor), points_pm and
+    obs_pm this process's shards (``shard_to_mesh(mesh, points_pad,
+    "data")``, ``shard_observations``).  Returns (new_poses7 on the first
+    shard's device, new points shards).  Every landmark block stays on its
+    shard; the four camera-side blocks go through ``mesh.psum``.
+
+    Each device runs two programs a step, ``pm_local_blocks`` and
+    ``pm_update``, over its shards in shard order; only what crosses
+    devices (the poses and K to each device, the psum) moves outside them."""
     def step(poses7, points_pm, obs_pm, K):
-        dtype = points_pm[0].dtype
-        points_pm = [p.to(ACC) for p in points_pm]
-        obs_pm = [o._replace(uv=o.uv.to(ACC), inv_s2=o.inv_s2.to(ACC)) for o in obs_pm]
-        parts, local = [], []
-        for pts, o in zip(points_pm, obs_pm):
-            dev = pts.device
-            reduce_me, keep = local_blocks(poses7.to(dev, ACC), pts, o, K.to(dev, ACC))
-            parts.append(reduce_me)
-            local.append(keep)
-        Hcc, gc, S, gp_red = (mesh.psum([p[j] for p in parts]) for j in range(4))
+        groups = {}  # device -> its shards' indices, in shard order
+        for i, pts in enumerate(points_pm):
+            groups.setdefault(pts.device, []).append(i)
+        parts, keep = [None] * len(points_pm), [None] * len(points_pm)
+        for dev, idx in groups.items():
+            got, kept = pm_local_blocks(poses7.to(dev), [points_pm[i] for i in idx],
+                                        [obs_pm[i] for i in idx], K.to(dev), n_opt, lam)
+            for i, g, k in zip(idx, got, kept):
+                parts[i], keep[i] = g, k
+        sums = [mesh.psum([p[j] for p in parts]) for j in range(4)]
 
-        dcs, new_points = {}, []
-        for i, (pts, o, (W, Hpp_inv, gp)) in enumerate(zip(points_pm, obs_pm, local)):
-            dev = pts.device
-            if dev not in dcs:  # replicated solve, once per device
-                dcs[dev] = solve(Hcc[i], gc[i], S[i], gp_red[i])
-            dc = dcs[dev]
-            # landmark back-substitution: fully local
-            safe_cam = torch.clamp(o.cam_idx, max=n_opt - 1)
-            WT_dc = _seg(torch.einsum("oij,oi->oj", W, dc[safe_cam]), o.pt_obs)
-            dp = torch.einsum("pij,pj->pi", Hpp_inv, gp + WT_dc)
-            new_points.append((pts - dp).to(dtype))
-
-        dev0 = mesh.devices[0]
-        poses7 = poses7.to(dev0)
-        new_opt = se3.pose_retract(poses7[:n_opt].to(ACC), dcs[dev0]).to(poses7.dtype)
-        return torch.cat([new_opt, poses7[n_opt:]], dim=0), new_points
+        new_points, new_poses = [None] * len(points_pm), None
+        for dev, idx in groups.items():
+            first = idx[0] == 0  # the first shard's device retracts the poses
+            pts, poses = pm_update(tuple(s[idx[0]] for s in sums),
+                                   [points_pm[i] for i in idx], [obs_pm[i] for i in idx],
+                                   [keep[i] for i in idx], poses7.to(dev) if first else None,
+                                   n_opt, lam)
+            for i, p in zip(idx, pts):
+                new_points[i] = p
+            if first:
+                new_poses = poses
+        return new_poses, new_points
 
     return step
 

@@ -38,7 +38,20 @@ replays it:
 - A host-side effect of captured code, such as a kernel's launch counter,
   goes through ``host_effect(f)``: ``f()`` runs at once outside a capture,
   and inside one is recorded and run at each replay instead.
-- The captured path records no autograd history.
+- The captured path records no autograd history, but for a training step
+  (``captured(fn, name, grad=True)``): there the graph holds the forward,
+  the backward and the in-place update of the parameters, PyTorch's
+  whole-network capture.  Such an ``fn`` takes its gradients with
+  ``torch.autograd.grad``, so that they are allocated in the graph's pool
+  and no ``.grad`` outlives the step, and updates the parameters and
+  buffers it closes over (or takes as constant leaves, such as a module) in
+  place: they are not inputs, the graph reads and writes them where they
+  lie.  A module among the constant leaves keys by its id, and its keys'
+  graphs are dropped at the first call after it is collected (a trained
+  model's graphs hold gigabytes).
+- The key also holds cuDNN's ``deterministic`` and ``benchmark`` flags and
+  ``torch.are_deterministic_algorithms_enabled()``, which choose the
+  algorithms a graph records.
 - ``last_call()`` says what the calling thread's last call of a captured
   callable did ("eager", "warm-up", "capture" or "replay"), for timings.
 
@@ -55,6 +68,7 @@ from __future__ import annotations
 import collections
 import threading
 import time
+import weakref
 
 import torch
 
@@ -85,16 +99,22 @@ def host_effect(f):
 # --------------------------------------------------------------------------- #
 # Input and output trees
 # --------------------------------------------------------------------------- #
-def _flatten(x, leaves):
+def _flatten(x, leaves, modules=None):
     """Append the tensor leaves of ``x`` (tuples, named tuples, lists and
-    dicts of tensors and constants) to ``leaves``; return its signature."""
+    dicts of tensors and constants) to ``leaves``, and its modules to
+    ``modules``; return its signature.  A module stands in it by its id,
+    so that a key does not keep the module alive."""
     if isinstance(x, torch.Tensor):
         leaves.append(x)
         return (tuple(x.shape), x.dtype, x.device)
+    if isinstance(x, torch.nn.Module):
+        if modules is not None:
+            modules.append(x)
+        return (type(x), id(x))
     if isinstance(x, (tuple, list)):
-        return (type(x), tuple(_flatten(v, leaves) for v in x))
+        return (type(x), tuple(_flatten(v, leaves, modules) for v in x))
     if isinstance(x, dict):
-        return (dict, tuple((k, _flatten(v, leaves)) for k, v in x.items()))
+        return (dict, tuple((k, _flatten(v, leaves, modules)) for k, v in x.items()))
     return (type(x), x)
 
 
@@ -146,6 +166,12 @@ def _transformed(leaves):
 
 def _stream_key(device):
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _algorithm_flags():
+    """The switches that choose the library algorithms a capture records."""
+    return (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+            torch.are_deterministic_algorithms_enabled())
 
 
 def _side_stream(device):
@@ -211,23 +237,27 @@ class _Entry:
 class Captured:
     """``fn`` captured per input key (module docstring)."""
 
-    def __init__(self, fn, name: str):
+    def __init__(self, fn, name: str, grad: bool = False):
         self.eager = fn
         self.name = name
+        self.grad = grad
+        self.__doc__, self.__wrapped__ = fn.__doc__, fn  # help() and inspect see fn
         self._entries = collections.OrderedDict()
+        self._dead = []                # keys of collected modules
         self._lock = threading.Lock()  # guards _entries
 
     def __call__(self, *args, **kwargs):
-        leaves = []
-        sig = _flatten((args, kwargs), leaves)
+        leaves, modules = [], []
+        sig = _flatten((args, kwargs), leaves, modules)
         device = _graph_device(leaves)
         if (device is None or getattr(_tls, "effects", None) is not None or _capturing()
                 or _transformed(leaves)):
             out = self.eager(*args, **kwargs)
             _tls.last = "eager"
             return out
-        key = (sig, _stream_key(device))
+        key = (sig, _stream_key(device), _algorithm_flags())
         with self._lock:
+            self._purge()
             entry = self._entries.get(key)
             if entry is None:
                 if len(self._entries) >= MAX_GRAPHS:
@@ -235,9 +265,11 @@ class Captured:
                     # can use it; its static inputs were used on this stream
                     self._entries.popitem(last=False)
                 self._entries[key] = _Entry()
+                for m in modules:  # its graphs go with it
+                    weakref.finalize(m, self._forget, key)
             else:
                 self._entries.move_to_end(key)
-        with torch.no_grad():
+        with torch.enable_grad() if self.grad else torch.no_grad():
             if entry is None:
                 with _capture_lock:
                     out = _warm(self.eager, args, kwargs, device)
@@ -272,16 +304,27 @@ class Captured:
         _flatten(out, entry.out_leaves)
         entry.inputs, entry.outputs, entry.effects, entry.graph = static, out, effects, graph
 
+    def _forget(self, key):
+        # a finalizer may run inside any allocation, the locked regions
+        # here included: the key is dropped at the next call
+        self._dead.append(key)
+
+    def _purge(self):
+        while self._dead:
+            self._entries.pop(self._dead.pop(), None)
+
     def stats(self):
         """One dict per captured key: replays, the reserved memory that the
         capture added (its pool, mostly), the capture's host ms."""
         with self._lock:
+            self._purge()
             entries = list(self._entries.values())
         return [dict(replays=e.replays, pool_bytes=e.pool_bytes, capture_ms=e.capture_ms)
                 for e in entries if e.graph is not None]
 
 
-def captured(fn, name: str) -> Captured:
+def captured(fn, name: str, grad: bool = False) -> Captured:
     """``fn`` captured in CUDA graphs on the card, ``fn`` itself on the CPU
-    (module docstring)."""
-    return Captured(fn, name)
+    (module docstring); ``grad``: a training step, captured with autograd
+    on."""
+    return Captured(fn, name, grad)

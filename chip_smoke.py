@@ -237,6 +237,33 @@ Phases, each of which raises on failure (exit code != 0):
       first and second calls of the Sim3 program's parts, where a process's
       first loop pays its one-off cost.
    ``python3 chip_smoke.py --phase15`` runs it alone.
+16. the reference's last jit sites (LAST_SITES: the mesh BA step's two
+   halves, the data-parallel descriptor's shard program, the ASDNet train
+   step with its backward and update, the three renderers, the greedy
+   engine, the 3D-3D Sim3 alignment), each a module-level graphs.captured callable whose calls in
+   phases 5-8 SiteLog records:
+   a. each site against its ``.eager``, bit for bit, through a fresh
+      callable (warm-up, capture, replays): the halves on 11a's problem at
+      1, 2, 4 and 8 shards, and three whole steps captured and eager at
+      each (all equal); phase 6's loop-closed map through _global_ba_mesh
+      at n_devices 2 and 8, eager and captured (all equal); the shard
+      program and dp_descriptor_fn on 11d's patches; five KITTI-proxy
+      frames (render_boxes) and the five EuRoC-proxy frames of 12b
+      (raycast_grid), each with and without depth, and five corridor
+      frames (render_frame) pinhole and through EuRoC's lens; the greedy
+      engine on 10c's 500x400 matrix; the 3D-3D Sim3 alignment (no
+      caller on the system's paths) on its test problem; five train steps
+      on 9a's pair cache
+      from one snapshot, eager then captured, with cuDNN deterministic
+      (parameters, running statistics and losses bitwise, no .grad left)
+      and with its defaults (tests/test_torch_train.py's gpu bars);
+   b. captured against eager: each site's ms (CUDA events where it is one
+      call, host ms a frame for the renderers), its pool bytes, the mesh
+      GBA's host ms beside the one-device captured GBA's, the train step's
+      steps/s;
+   c. 9a's training through train_asdnet_torch.py with the captured step
+      and with the eager one: FPR@95 within 9a's band, steps/s.
+   ``python3 chip_smoke.py --phase16`` runs it alone.
 
 Prints a `kernels` JSON line before the last line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1877,13 +1904,13 @@ def train_busy(device, n_steps=10):
 
     model = asdnet.ASDNetTrain(asdnet.init_params(
         asdnet.draw_init_seeds(torch.Generator().manual_seed(0)))).to(device)
-    opt = T.make_optimizer(model)
     g = torch.Generator(device).manual_seed(0)
     a, p = T.make_batch(T.draw_batch(g, TRAIN_BATCH))
+    lr = torch.tensor(0.1, device=device)
 
     def steps(n):
         for _ in range(n):
-            T.train_step(model, opt, a, p, 0.1, T.draw_step(g, TRAIN_BATCH))
+            T.train_step(model, a, p, lr, T.draw_step(g, TRAIN_BATCH))
 
     steps(3)
     torch.cuda.synchronize()
@@ -3272,7 +3299,7 @@ def phase13(device, card):
 
 
 def tree_leaves(x):
-    if isinstance(x, tuple):
+    if isinstance(x, (tuple, list)):
         return [leaf for f in x for leaf in tree_leaves(f)]
     return [x]
 
@@ -3303,19 +3330,20 @@ def eager_sites(names=None):
     """Inside the block the capture sites run eagerly: with no ``names``
     every site (graphs.captured returns its function, for the extractors
     and fused steps built inside the block; the module-level captured LM
-    iterations and JIT_SITES are their ``.eager``); else the JIT_SITES
-    named.  A patch of this script only: the port has no such switch."""
+    iterations, JIT_SITES and LAST_SITES are their ``.eager``); else the
+    JIT_SITES or LAST_SITES named.  A patch of this script only: the port
+    has no such switch."""
     from asdslam_torch.backend import ba, global_ba, pose_graph
     from asdslam_torch.utils import graphs
 
-    owners = site_owners(JIT_SITES if names is None else names)
+    owners = site_owners([*JIT_SITES, *LAST_SITES] if names is None else names)
     saved = []
     if names is None:
         saved.append((graphs, "captured", graphs.captured))
         owners += [(m, "_lm_step") for m in (ba, global_ba, pose_graph)]
     saved += [(m, a, getattr(m, a)) for m, a in owners]
     if names is None:
-        graphs.captured = lambda fn, name: fn
+        graphs.captured = lambda fn, name, grad=False: fn
     for m, a in owners:
         setattr(m, a, getattr(m, a).eager)
     try:
@@ -3613,10 +3641,11 @@ LOOP_FUNNEL = ("loop_search_global", "loop_sim3", "loop_guided", "loop_project_s
 
 
 def site_owners(names):
-    """(module, attribute) of each JIT_SITES name."""
+    """(module, attribute) of each JIT_SITES or LAST_SITES name."""
     import importlib
 
-    return [(importlib.import_module(JIT_SITES[n][0]), JIT_SITES[n][1]) for n in names]
+    sites = {**JIT_SITES, **LAST_SITES}
+    return [(importlib.import_module(sites[n][0]), sites[n][1]) for n in names]
 
 
 def jit_site(name):
@@ -3656,7 +3685,7 @@ def clone_tree(x):
     return x
 
 
-def check_site(name, site, args, kwargs):
+def check_site(name, site, args, kwargs, phase="15a"):
     """One capture site on its inputs: ``.eager``, then the site three times
     (on a new key: the warm-up, the capture with its first replay, a
     replay), each bit for bit the eager result.  Returns the host ms of the
@@ -3671,14 +3700,15 @@ def check_site(name, site, args, kwargs):
         if not tree_same_bits(got, want):
             bad = [n for n, (x, y) in enumerate(zip(tree_leaves(got), tree_leaves(want)))
                    if not same_bits(x, y)]
-            raise AssertionError(f"15a: {name}'s call {i + 1} ({kind}) differs from .eager in "
+            raise AssertionError(f"{phase}: {name}'s call {i + 1} ({kind}) differs from .eager in "
                                  f"output leaves {bad}")
         calls.append((kind, ms))
     return dict(eager_ms=eager_ms, calls=calls)
 
 
 class SiteLog:
-    """``with SiteLog() as log:`` wraps every JIT_SITES callable: each call's
+    """``with SiteLog() as log:`` wraps every JIT_SITES and LAST_SITES
+    callable: each call's
     host ms (the calling thread's stream synchronised before and after, so
     they hold the card's work too), what it did (``graphs.last_call()``),
     its start and end on the host clock, its thread and the label
@@ -3739,7 +3769,8 @@ class SiteLog:
     def __enter__(self):
         from asdslam_torch.loop.loop_closing import LoopCloser
 
-        for name, (m, a) in zip(JIT_SITES, site_owners(JIT_SITES)):
+        names = [*JIT_SITES, *LAST_SITES]
+        for name, (m, a) in zip(names, site_owners(names)):
             site = getattr(m, a)
             self._saved.append((m, a, site))
             setattr(m, a, self._site_wrapper(name, site))
@@ -3866,6 +3897,8 @@ def phase15(cfg, weights, device, card, sites, captured_runs):
     process = sites.first_calls()
     checks = {}
     for name, (args, kwargs) in sites.args.items():
+        if name not in JIT_SITES:  # LAST_SITES: phase 16's
+            continue
         site = jit_site(name)
         checks[name] = check_site(name, site, args, kwargs)
         checks[name]["in_process"] = process.get(name)
@@ -4031,6 +4064,480 @@ def sim3_first_calls_child():
         out[name] = times
     print(json.dumps(out))
     return 0
+
+
+# --------------------------------------------------------------------------- #
+# Phase 16: the reference's last jit sites
+# --------------------------------------------------------------------------- #
+# The captured callables of the reference's last eager jit sites, by name:
+# (module, attribute, the JAX jit).  SiteLog wraps them beside JIT_SITES.
+LAST_SITES = {
+    "pm_local_blocks": ("asdslam_torch.parallel.dist", "pm_local_blocks",
+                        "asdslam_tpu/parallel/dist.py:231"),
+    "pm_update": ("asdslam_torch.parallel.dist", "pm_update", "asdslam_tpu/parallel/dist.py:231"),
+    "dp_descriptor": ("asdslam_torch.parallel.dist", "shard_descriptors",
+                      "asdslam_tpu/parallel/dist.py:88"),
+    "train_step": ("asdslam_torch.models.train", "train_step", "asdslam_tpu/models/train.py:131"),
+    "render_frame": ("asdslam_torch.io.synthetic", "_render_frame",
+                     "asdslam_tpu/io/synthetic.py:55"),
+    "render_boxes": ("asdslam_torch.io.kitti_proxy", "_render_boxes",
+                     "asdslam_tpu/io/kitti_proxy.py:170"),
+    "raycast_grid": ("asdslam_torch.io.kitti_proxy", "_raycast_grid",
+                     "asdslam_tpu/io/kitti_proxy.py:186"),
+    "greedy_assignment": ("asdslam_torch.ops.assignment", "greedy_assignment",
+                          "asdslam_tpu/ops/assignment.py:46"),
+    "sim3_align": ("asdslam_torch.estimators.sim3_horn", "optimize_sim3_align",
+                   "asdslam_tpu/estimators/sim3_horn.py:202"),
+}
+MESH_HALVES = ("pm_local_blocks", "pm_update")
+N_TRAIN_CHECK = 5          # 16a's train steps, eager and captured from one snapshot
+# tests/test_torch_train.py's bars: one step on the card against the CPU
+# (its gpu test), and five chained steps against the JAX package
+TRAIN_LOSS_BAR, TRAIN_CONV_BAR = 1e-4, 1e-3
+CHAIN_LOSS_BAR, CHAIN_CONV_BAR = 0.05, 0.1
+N_TRAIN_RATE = 60          # 16b's timed steps of each form
+KITTI_CHECK_FRAMES = (0, 10, 20, 30, 39)      # of N_KITTI frames of KITTI_PATHS["right"]
+
+
+@contextlib.contextmanager
+def first_site_args(names):
+    """Keep the arguments (cloned at the call) of the first call of each
+    named site (JIT_SITES or LAST_SITES) made inside the block."""
+    kept, saved = {}, []
+    for name, (m, a) in zip(names, site_owners(names)):
+        site = getattr(m, a)
+        saved.append((m, a, site))
+
+        def wrapper(*args, _name=name, _site=site, **kw):
+            if _name not in kept:
+                kept[_name] = (clone_tree(args), clone_tree(kw))
+            return _site(*args, **kw)
+        wrapper.eager = site.eager
+        setattr(m, a, wrapper)
+    try:
+        yield kept
+    finally:
+        for m, a, site in saved:
+            setattr(m, a, site)
+
+
+def fresh_site(name):
+    """A new captured callable of the named site's function: no key of its
+    own yet, so its first calls warm up, capture and replay."""
+    from asdslam_torch.utils import graphs
+
+    site = jit_site(name)
+    return graphs.captured(site.eager, site.name, site.grad)
+
+
+def check_fresh(name, args, kwargs, reps=5):
+    """check_site on a fresh callable of ``name`` (warm-up, capture, replay,
+    each bit for bit ``.eager``), then the replay and the eager call by
+    CUDA events over ``reps`` calls, and the graph's pool bytes."""
+    site = fresh_site(name)
+    out = check_site(name, site, args, kwargs, phase="16a")
+    out.update(eager_event_ms=time_ms(lambda: site.eager(*args, **kwargs), reps),
+               replay_event_ms=time_ms(lambda: site(*args, **kwargs), reps),
+               pool_bytes=[s["pool_bytes"] for s in site.stats()])
+    return out
+
+
+def check_frames(name, frames_args):
+    """A fresh callable of ``name`` over real frames' arguments in order
+    (the first call warms up, the second captures, the rest replay), each
+    bit for bit ``.eager``.  Returns host ms a frame of both and the pool
+    bytes."""
+    from asdslam_torch.utils import graphs
+
+    site = fresh_site(name)
+    eager_ms, calls = [], []
+    for i, args in enumerate(frames_args):
+        want, ms = timed_call(lambda: site.eager(*args))
+        eager_ms.append(ms)
+        got, ms = timed_call(lambda: site(*args))
+        calls.append((graphs.last_call(), ms))
+        if not tree_same_bits(got, want):
+            raise AssertionError(f"16a: {name} frame {i} ({calls[-1][0]}) differs from .eager")
+    replay = [ms for kind, ms in calls if kind == "replay"]
+    return dict(frames=len(frames_args), calls=calls, eager_ms=float(np.mean(eager_ms)),
+                replay_ms=float(np.mean(replay)) if replay else None,
+                pool_bytes=[s["pool_bytes"] for s in site.stats()])
+
+
+def mesh_step_checks(device, card):
+    """16a's mesh step: each half on the arguments of 11a's step at every
+    shard count (a fresh callable: warm-up, capture, replay); three steps
+    eager and captured at every shard count, each bitwise equal to the
+    others."""
+    from asdslam_torch.parallel import dist
+
+    problem = make_problem_np()
+    halves, runs = {}, {}
+    for n in MD_SHARDS:
+        with first_site_args(MESH_HALVES) as kept:
+            md_steps(dist.make_mesh(n, device), problem)
+        for name in MESH_HALVES:
+            halves[f"{name} {n} shards"] = check_fresh(name, *kept[name])
+        with eager_sites(list(MESH_HALVES)):
+            eager = md_steps(dist.make_mesh(n, device), problem, steps=3)
+        runs[n] = md_steps(dist.make_mesh(n, device), problem, steps=3)
+        if not all(np.array_equal(a, b) for a, b in zip(eager, runs[n])):
+            raise AssertionError(f"16a: three captured mesh steps on {n} shards differ from "
+                                 "the eager steps")
+    for n in MD_SHARDS[1:]:
+        if not all(np.array_equal(a, b) for a, b in zip(runs[n], runs[1])):
+            raise AssertionError(f"16a: three captured mesh steps on {n} shards differ from 1 "
+                                 "shard's")
+    for key, c in halves.items():
+        log(f"16a {key}: captured bitwise equal to .eager (" + ", ".join(
+            f"{k} {ms:.2f}" for k, ms in c["calls"]) + f" host ms; eager {c['eager_ms']:.2f}); "
+            f"CUDA events eager {c['eager_event_ms']:.3f} ms, replay {c['replay_event_ms']:.3f}"
+            f" ms; pool {c['pool_bytes']} B [{card}]")
+    log(f"16a three mesh steps, captured and eager, on {MD_SHARDS} shards: all bitwise equal "
+        f"[{card}]")
+    return halves
+
+
+def mesh_gba_checks(loop_system, device, card):
+    """16a/16b's mesh GBA: phase 6's loop-closed map through
+    LoopCloser._global_ba at each of GBA_MESHES with the halves eager, then
+    captured twice (the first call warms and captures, the second
+    replays): every result bitwise the others; host ms of each beside the
+    one-device captured GBA's two calls."""
+    import copy
+    import torch
+    from asdslam_torch.loop.loop_closing import LoopCloser
+
+    lc0, before = loop_system.loop_closer, loop_system.store
+    n_kf, n_mp = before.n_kf, before.n_mp
+    results, ms = {}, {}
+
+    def run(k):
+        lc = LoopCloser(lc0.cfg.replace(n_devices=k), lc0.K, copy.deepcopy(before),
+                        device=device)
+        _, t = timed_call(lc._global_ba)
+        return (lc.store.kf_pose[:n_kf].copy(), lc.store.mp_pos[:n_mp].copy()), t
+
+    for k in GBA_MESHES:
+        with eager_sites(list(MESH_HALVES)):
+            results[(k, "eager")], ms[(k, "eager")] = run(k)
+        for form in ("captured first", "captured again"):
+            results[(k, form)], ms[(k, form)] = run(k)
+    for form in ("captured first", "captured again"):
+        _, ms[(1, form)] = run(1)
+    want = results[(GBA_MESHES[0], "eager")]
+    for key, got in results.items():
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"16a: the mesh GBA {key} differs from n_devices "
+                                 f"{GBA_MESHES[0]} eager")
+    if not np.isfinite(want[0]).all() or np.array_equal(want[0], before.kf_pose[:n_kf]):
+        raise AssertionError("16a: the mesh GBA left non-finite or unmoved poses")
+    out = {f"n_devices {k} {form}": v for (k, form), v in ms.items()}
+    log(f"16a phase 6's map ({n_kf} keyframes) through _global_ba_mesh at n_devices "
+        f"{GBA_MESHES}, eager and captured: all bitwise equal [{card}]")
+    log("16b mesh GBA host ms a call: " + ", ".join(f"{k} {v:.1f}" for k, v in out.items())
+        + " (n_devices 1: the one-device captured global_bundle_adjust) " + f"[{card}]")
+    return out
+
+
+def dp_descriptor_checks(cfg, weights, device, card):
+    """16a's data-parallel descriptor on 11d's patches (one frame's 2000
+    from the trained extractor): the shard program on its first shard's
+    arguments (a fresh callable), and dp_descriptor_fn's output captured
+    (three calls) bitwise equal to the eager one."""
+    import torch
+    from asdslam_torch.frontend.extractor import make_extractor
+    from asdslam_torch.models.asdnet import ASDNet
+    from asdslam_torch.parallel import dist
+
+    net = ASDNet().to(device)
+    net.load_state_dict(weights)
+    frames_u8 = build_tracking(cfg, device)[2]
+    seen = []
+    with torch.no_grad():
+        make_extractor(cfg, lambda p: seen.append(p) or net(p))(
+            frames_u8[1].to(device).to(torch.float32) / 255.0)
+    dp = dist.dp_descriptor_fn(weights, dist.make_mesh(DP_PATCH_SHARDS, device))
+    with eager_sites(["dp_descriptor"]):
+        want = dp(seen[0])
+    for i in range(3):
+        with first_site_args(["dp_descriptor"]) as kept:
+            got = dp(seen[0])
+        if not same_bits(got, want):
+            raise AssertionError(f"16a: dp_descriptor_fn's call {i + 1} differs from eager")
+    out = check_fresh("dp_descriptor", *kept["dp_descriptor"])
+    log(f"16a dp_descriptor ({DP_PATCH_SHARDS} shards of {seen[0].shape[0]} patches): the shard "
+        "program and dp_descriptor_fn captured bitwise equal to eager; CUDA events a shard "
+        f"eager {out['eager_event_ms']:.3f} ms, replay {out['replay_event_ms']:.3f} ms; pool "
+        f"{out['pool_bytes']} B [{card}]")
+    return out
+
+
+def train_checks(cache, device, card):
+    """16a/16b's train step on 9a's pair cache at TRAIN_BATCH: from one
+    snapshot of train_asdnet_torch.py's seeded model, N_TRAIN_CHECK steps
+    eager (``.eager``) and the same steps through a fresh captured step
+    (warm-up, capture, replays), with cuDNN deterministic (parameters,
+    running statistics and losses bit for bit) and with its defaults, whose
+    weight gradients are not bitwise run to run (the first step within
+    tests/test_torch_train.py's gpu bars, the chain within its five-step
+    bars; two eager runs' gap beside it); then N_TRAIN_RATE steps of each
+    form timed (host clock, synchronised at the ends)."""
+    import torch
+    from asdslam_torch.models import asdnet
+    from asdslam_torch.models import train as T
+
+    z = np.load(cache)
+    pool_a, pool_p = (torch.as_tensor(z[k]).to(device) for k in ("pool_a", "pool_p"))
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device).manual_seed(1)
+    steps = [(torch.as_tensor(rng.integers(0, len(pool_a), TRAIN_BATCH)).to(device),
+              T.draw_step(gen, TRAIN_BATCH)) for _ in range(N_TRAIN_CHECK)]
+    lrs = T.lr_table(N_STEPS, 0.5, device)
+    model = asdnet.ASDNetTrain(asdnet.init_params(
+        asdnet.draw_init_seeds(torch.Generator().manual_seed(0)))).to(device)
+    snap = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def restore():
+        with torch.no_grad():
+            for k, v in model.state_dict().items():
+                v.copy_(snap[k])
+
+    def state():
+        return {k: v.clone() for k, v in model.state_dict().items()}
+
+    def run(step_fn):
+        """(losses, the state after the first step, the state after the last)"""
+        restore()
+        losses, first = [], None
+        for i, (sel, draws) in enumerate(steps):
+            losses.append(step_fn(model, pool_a[sel], pool_p[sel], lrs[i], draws))
+            first = first or state()
+        return torch.stack(losses), first, state()
+
+    def gaps(a, b):
+        """(max |d loss| over the steps, |d conv| after the first step and
+        after the last, |d running statistics| after the last)"""
+        def most(x, y, prefix):
+            return max(float((x[k] - y[k]).abs().max()) for k in x if k.startswith(prefix))
+        return (float((a[0] - b[0]).abs().max()), most(a[1], b[1], "conv"),
+                most(a[2], b[2], "conv"), most(a[2], b[2], "bn_"))
+
+    flags = torch.backends.cudnn
+    saved = flags.deterministic, flags.benchmark
+    out = {}
+    try:
+        for setting in ("deterministic", "default"):
+            flags.deterministic, flags.benchmark = setting == "deterministic", False
+            eager = run(T.train_step.eager)
+            again = run(T.train_step.eager) if setting == "default" else eager
+            site = fresh_site("train_step")
+            captured = run(site)
+            if any(c.grad is not None for c in model.conv):
+                raise AssertionError("16a: a captured train step left a .grad on the convs")
+            loss_d, first_d, conv_d, stat_d = gaps(eager, captured)
+            if setting == "deterministic":
+                if not tree_same_bits((eager[0], *eager[2].values()),
+                                      (captured[0], *captured[2].values())):
+                    raise AssertionError(f"16a: {N_TRAIN_CHECK} captured train steps with cuDNN "
+                                         f"deterministic differ from eager: loss {loss_d:.3g}, "
+                                         f"convs {conv_d:.3g}, running stats {stat_d:.3g}")
+            elif not (float((eager[0][0] - captured[0][0]).abs()) <= TRAIN_LOSS_BAR
+                      and first_d <= TRAIN_CONV_BAR and loss_d <= CHAIN_LOSS_BAR
+                      and conv_d <= CHAIN_CONV_BAR):
+                raise AssertionError(f"16a: captured train steps with cuDNN's defaults: loss "
+                                     f"{loss_d:.3g}, convs {first_d:.3g} after the first step "
+                                     f"(bars {TRAIN_LOSS_BAR} / {TRAIN_CONV_BAR}), {conv_d:.3g}"
+                                     f" after {N_TRAIN_CHECK} (bars {CHAIN_LOSS_BAR} / "
+                                     f"{CHAIN_CONV_BAR})")
+            out[setting] = dict(loss_diff=loss_d, conv_diff_first=first_d, conv_diff=conv_d,
+                                stats_diff=stat_d, eager_again=gaps(eager, again),
+                                pool_bytes=[s["pool_bytes"] for s in site.stats()])
+            log(f"16a train_step, {N_TRAIN_CHECK} steps at batch {TRAIN_BATCH} on 9a's cache, "
+                f"cuDNN {setting}: captured (warm-up, capture, replays) against eager: losses "
+                f"{loss_d:.3g}, convs {first_d:.3g} after the first step and {conv_d:.3g} after "
+                f"the last, running statistics {stat_d:.3g} apart"
+                + (" (bitwise)" if setting == "deterministic" else
+                   f" (bars: the first step {TRAIN_LOSS_BAR} / {TRAIN_CONV_BAR}, the chain "
+                   f"{CHAIN_LOSS_BAR} / {CHAIN_CONV_BAR}); two eager runs (loss, convs first / "
+                   f"last, stats) " + " / ".join(f"{x:.3g}" for x in out[setting]["eager_again"]))
+                + f"; no .grad left; pool {out[setting]['pool_bytes']} B [{card}]")
+        flags.deterministic, flags.benchmark = saved
+        rates = {}
+        for form, fn in (("captured", site), ("eager", T.train_step.eager),
+                         ("eager again", T.train_step.eager), ("captured again", site)):
+            sel, draws = steps[0]
+            a, p = pool_a[sel], pool_p[sel]
+            fn(model, a, p, lrs[0], draws)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(N_TRAIN_RATE):
+                fn(model, a, p, lrs[i], draws)
+            torch.cuda.synchronize()
+            rates[form] = N_TRAIN_RATE / (time.perf_counter() - t0)
+        out["steps_per_s"] = rates
+        log(f"16b train_step steps/s at batch {TRAIN_BATCH} over {N_TRAIN_RATE} steps (host "
+            "clock, synchronised at the ends, cuDNN's defaults): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in rates.items()) + f" [{card}]")
+    finally:
+        flags.deterministic, flags.benchmark = saved
+    return out
+
+
+def render_checks(cfg, device, card):
+    """16a/16b's renderers on real frames: five KITTI-proxy frames
+    (render_boxes at 1241x376, KITTI 03's intrinsics, 256 boxes, on
+    KITTI_PATHS["right"]'s ground truth) and the five EUROC_GAP_FRAMES of
+    the EuRoC proxy (raycast_grid through its lens grid, 96 boxes), each
+    with and without depth, and the corridor (render_frame) at cfg's shape
+    and through EuRoC's lens at 752x480: a fresh callable each (warm-up,
+    capture, replays), every frame bit for bit ``.eager``; host ms a frame
+    of both."""
+    import tempfile
+    import torch
+    from asdslam_torch.io import euroc_proxy, kitti_proxy as kp, synthetic
+
+    dev = torch.device(device)
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        write_kitti_ground_truth(root)
+        saved = kp.GT_DIR, kp.CAM_DIR
+        kp.GT_DIR = kp.CAM_DIR = root
+        try:
+            seq = kp.KittiProxySequence("03", max_frames=N_KITTI, device=device)
+        finally:
+            kp.GT_DIR, kp.CAM_DIR = saved
+    eu = euroc_proxy.EurocProxySequence(device=device)
+    for depth in (False, True):
+        kitti = []
+        for i in KITTI_CHECK_FRAMES:
+            w = kp.select_boxes(seq.world, seq.centers[i], seq.n_boxes)
+            kitti.append((kp._on(seq.gt_pose7[i], dev), seq.K, *kp._boxes_on(
+                w.bmin, w.bmax, w.salt, dev), seq.height, seq.width, 0.35, depth))
+        out[f"render_boxes depth={depth}"] = check_frames("render_boxes", kitti)
+        euroc = []
+        for i in EUROC_GAP_FRAMES:
+            w = kp.select_boxes(eu.world, eu.centers[i], eu.n_boxes)
+            euroc.append((kp._on(eu.gt_pose7[i], dev), eu._xn, eu._yn, *kp._boxes_on(
+                w.bmin, w.bmax, w.salt, dev), 0.22, depth))
+        out[f"raycast_grid depth={depth}"] = check_frames("raycast_grid", euroc)
+    K = torch.tensor([[cfg.fx, 0, cfg.cx], [0, cfg.fy, cfg.cy], [0, 0, 1.0]], device=dev)
+    poses = synthetic.make_trajectory(5, STEP_M, TURN, device=device)
+    dist = tuple(float(x) for x in EUROC_CAM.split(",")[4:])
+    fx, fy, cx, cy = (float(x) for x in EUROC_CAM.split(",")[:4])
+    lK = torch.tensor([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]], device=dev)
+    lens = synthetic.camera_mod.Camera.create(1.0, 1.0, 0.0, 0.0, *dist, device=dev)
+    out["render_frame pinhole"] = check_frames(
+        "render_frame", [(poses[i], K, cfg.image_height, cfg.image_width, synthetic.Scene(),
+                          None) for i in range(5)])
+    out["render_frame EuRoC lens"] = check_frames(
+        "render_frame", [(poses[i], lK, EUROC_H, EUROC_W, synthetic.Scene(), lens)
+                         for i in range(5)])
+    for key, r in out.items():
+        log(f"16a {key}: {r['frames']} frames captured bitwise equal to .eager ("
+            + ", ".join(kind for kind, _ in r["calls"]) + f"); 16b host ms a frame eager "
+            f"{r['eager_ms']:.2f}, replay {r['replay_ms']:.2f}; pool {r['pool_bytes']} B "
+            f"[{card}]")
+    return out
+
+
+def assignment_check(device, card):
+    """16a/16b's greedy engine on 10c's masked 500x400 matrix."""
+    import torch
+
+    g = np.random.default_rng(10)
+    n, m = ASSIGN_SHAPE
+    score = torch.tensor((g.integers(0, 50, (n, m)) / 50).astype(np.float32)).to(device)
+    valid = torch.tensor(g.uniform(size=(n, m)) < 0.3).to(device)
+    out = check_fresh("greedy_assignment", (score, valid, 0.1), {}, reps=3)
+    log(f"16a greedy_assignment {n}x{m}: captured bitwise equal to .eager (" + ", ".join(
+        f"{k} {ms:.2f}" for k, ms in out["calls"]) + " host ms); 16b ms a call by CUDA events "
+        f"eager {out['eager_event_ms']:.3f}, replay {out['replay_event_ms']:.3f}; pool "
+        f"{out['pool_bytes']} B [{card}]")
+    return out
+
+
+def sim3_align_problem(n=200, seed=3):
+    """tests/test_torch_loop.py's 3D-3D alignment problem (numpy): 200
+    points under s = 1.4 and a rotation, 40 of them outliers."""
+    import torch
+    from asdslam_torch.geometry import se3
+
+    g = np.random.default_rng(seed)
+    X = g.uniform(-5, 5, (n, 3)).astype(np.float32)
+    R = se3.so3_exp(torch.tensor([[0.1, -0.2, 0.3]]))[0].numpy()
+    Y = (1.4 * X @ R.T + [2.0, -1.0, 0.5] + 0.01 * g.normal(size=(n, 3))).astype(np.float32)
+    Y[:40] += (5.0 * g.normal(size=(40, 3))).astype(np.float32)
+    return X, Y
+
+
+def sim3_align_check(device, card):
+    """16a/16b's 3D-3D Sim3 alignment (no caller on the system's paths, in
+    either package) on its test problem."""
+    import torch
+
+    X, Y = sim3_align_problem()
+    args = (torch.tensor(X).to(device), torch.tensor(Y).to(device),
+            torch.ones(len(X), dtype=torch.bool, device=device))
+    out = check_fresh("sim3_align", args, {}, reps=3)
+    log(f"16a optimize_sim3_align ({len(X)} points): captured bitwise equal to .eager ("
+        + ", ".join(f"{k} {ms:.2f}" for k, ms in out["calls"]) + " host ms); 16b ms a call by "
+        f"CUDA events eager {out['eager_event_ms']:.3f}, replay {out['replay_event_ms']:.3f}; "
+        f"pool {out['pool_bytes']} B [{card}]")
+    return out
+
+
+def phase16(cfg, weights, device, card, loop_system, sites=None):
+    """16a-16c (module docstring); ``loop_system`` is phase 6's first
+    default-configuration System (after its loop), ``sites`` the SiteLog
+    of phases 5-8 (None: not recorded).  Returns the numbers for the JSON
+    line."""
+    import tempfile
+    import torch
+    import train_asdnet_torch
+    from asdslam_torch.models import train as T
+
+    out = {}
+    if sites is not None:
+        out["in_phases_5_8"] = {
+            name: {k: sum(c["site"] == name and c["kind"] == k for c in sites.calls)
+                   for k in ("warm-up", "capture", "replay")} for name in LAST_SITES}
+        log("16 the new sites' calls in phases 5-8 (warm-ups / captures / replays): "
+            + ", ".join(f"{n} " + " / ".join(str(v) for v in c.values())
+                        for n, c in out["in_phases_5_8"].items()) + f" [{card}]")
+    out["mesh_halves"] = mesh_step_checks(device, card)
+    out["mesh_gba_ms"] = mesh_gba_checks(loop_system, device, card)
+    out["dp_descriptor"] = dp_descriptor_checks(cfg, weights, device, card)
+    out["renderers"] = render_checks(cfg, device, card)
+    out["greedy_assignment"] = assignment_check(device, card)
+    out["sim3_align"] = sim3_align_check(device, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "pairs.npz")
+        T.write_pair_cache(cache, N_POOL, N_HELD_OUT)
+        out["train_step"] = train_checks(cache, device, card)
+        # ---- 16c: 9a's training, captured and eager ------------------------ #
+        out["16c"] = {}
+        for form in ("captured", "eager"):
+            with (eager_sites(["train_step"]) if form == "eager" else contextlib.nullcontext()):
+                res, _, _, sec = run_entry(train_asdnet_torch.main, [
+                    "--device", device, "--pairs_cache", cache, "--steps", str(N_STEPS),
+                    "--batch", str(TRAIN_BATCH), "--eval_pairs", str(N_HELD_OUT), "--out",
+                    os.path.join(tmp, f"{form}.pkl")])
+            trained = res["fpr95_asd_trained"]
+            if not (np.isfinite(res["final_loss"])
+                    and abs(trained - REF_TRAIN["fpr95_asd_trained"]) <= TRAIN_FPR_BAND
+                    and trained < min(res["fpr95_asd_random"], res["fpr95_patch_classical"])):
+                raise AssertionError(f"16c: 9a's training {form}: {res} (band {TRAIN_FPR_BAND} "
+                                     f"of {REF_TRAIN['fpr95_asd_trained']})")
+            out["16c"][form] = dict(result=res, seconds=sec)
+            log(f"16c 9a's training (train_asdnet_torch.py, {N_STEPS} steps at batch "
+                f"{TRAIN_BATCH}) with the {form} step: FPR@95 trained {trained} (JAX package "
+                f"{REF_TRAIN['fpr95_asd_trained']}, band {TRAIN_FPR_BAND}), random "
+                f"{res['fpr95_asd_random']}, classical {res['fpr95_patch_classical']}; "
+                f"{res['steps_per_s']} steps/s, final loss {res['final_loss']:.4f}, {sec:.1f} s "
+                f"[{card}]")
+    torch.cuda.synchronize()
+    return out
 
 
 def main():
@@ -4252,6 +4759,11 @@ def main():
     jit_sites["seconds"] = time.perf_counter() - t0
     del default_runs
     stamp("phase 15")
+    # ---- 16. the reference's last jit sites, captured ---------------------- #
+    t0 = time.perf_counter()
+    last_sites = phase16(cfg, weights, device, card, loop_system, sites)
+    last_sites["seconds"] = time.perf_counter() - t0
+    stamp("phase 16")
 
     # K1 by shape.  Everything that reads a clock comes before the first use
     # of torch.profiler: once it has traced, later launches of the process
@@ -4354,7 +4866,7 @@ def main():
                              "captured_chain": capture["14a"]["launches"]},
         "default_config": default, "localization": localization, "entry_points": entry,
         "training": training, "orb_path": orb_path, "phase12": tools, "phase13": faults,
-        "phase14": capture, "phase15": jit_sites,
+        "phase14": capture, "phase15": jit_sites, "phase16": last_sites,
         "system": {"frames": N_SYSTEM, "fps": system_fps,
                    "frame_ms_median": float(np.median(steady)),
                    "keyframe_frame_ms": [float(x) for x in frame_ms[is_kf]],
@@ -4472,6 +4984,35 @@ def phase15_alone():
     return 0
 
 
+def phase16_alone():
+    """``python3 chip_smoke.py --phase16``: phase 16 without the other
+    phases, for a change to one of its sites (~3 min): phase 6's default
+    configuration once (the map 16a's mesh GBA reads), then phase 16.
+    Prints one JSON line; exit code 0 when every check passed."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from asdslam_torch import kernels
+    from asdslam_torch.config import SlamConfig
+    from asdslam_torch.models.asdnet import load_weights
+
+    device, card = "cuda", card_line()
+    kernels.build()
+    log(f"card: {card}")
+    cfg = SlamConfig()
+    weights = load_weights(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                        "asdnet_weights.pkl"))
+    loop_system = run_default(cfg, render_loop(cfg, device)[0], weights, device)["system"]
+    if not loop_system.loop_closer.accepted_log:
+        raise AssertionError("phase 6's run closed no loop")
+    out = phase16(cfg, weights, device, card, loop_system)
+    log(json.dumps({"phase16": out, "card": card}, default=str))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multihost-child"]:
         sys.exit(multihost_child(sys.argv[2:]))
@@ -4479,6 +5020,8 @@ if __name__ == "__main__":
         sys.exit(phase14_alone())
     if sys.argv[1:2] == ["--phase15"]:
         sys.exit(phase15_alone())
+    if sys.argv[1:2] == ["--phase16"]:
+        sys.exit(phase16_alone())
     if sys.argv[1:2] == ["--sim3-first-calls"]:
         sys.exit(sim3_first_calls_child())
     sys.exit(main())

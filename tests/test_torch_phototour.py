@@ -53,11 +53,10 @@ class TestPhotoTourPipeline:
         loaded, lids = ttr.load_phototour(root)
         model = tnet.ASDNetTrain(tnet.init_params(
             tnet.draw_init_seeds(torch.Generator().manual_seed(0))))
-        opt = ttr.make_optimizer(model)
         g = torch.Generator().manual_seed(1)
         for _ in range(2):
             a, p = ttr.phototour_batch(loaded, lids, ttr.draw_phototour(g, lids, 16))
-            loss = ttr.train_step(model, opt, torch.tensor(a), torch.tensor(p), 0.1,
+            loss = ttr.train_step(model, torch.tensor(a), torch.tensor(p), torch.tensor(0.1),
                                   ttr.draw_step(g, 16))
         assert np.isfinite(float(loss))
 

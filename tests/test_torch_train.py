@@ -278,7 +278,6 @@ def run_steps(jax_params, n_steps, batch=32, base_lr=0.5):
     JAX params, port model) after each step."""
     params = jax_params
     model = tnet.ASDNetTrain(jax_params)
-    opt = ttr.make_optimizer(model)
     key = jax.random.PRNGKey(1)
     for step in range(n_steps):
         key, kb, ks = jax.random.split(key, 3)
@@ -286,7 +285,7 @@ def run_steps(jax_params, n_steps, batch=32, base_lr=0.5):
         lr = ttr.lr_schedule(step, 2 * n_steps, base_lr)
         adaptive = step < max(1, n_steps // 2)
         params, _, jloss = jtr.train_step(params, None, a, p, ks, lr, adaptive=adaptive)
-        tloss = ttr.train_step(model, opt, T(a), T(p), lr, jax_step_draws(ks, batch),
+        tloss = ttr.train_step(model, T(a), T(p), torch.tensor(lr), jax_step_draws(ks, batch),
                                adaptive=adaptive)
         yield step, float(jloss), float(tloss), jax.device_get(params), model
 
@@ -444,8 +443,8 @@ def test_train_step_on_cuda_matches_cpu(jax_params):
         model = tnet.ASDNetTrain(jax_params).to(dev)
         moved = ttr.StepDraws(ttr.AugmentDraws(*(t.to(dev) for t in draws.augment)),
                               draws.mask_a.to(dev), draws.mask_p.to(dev))
-        losses.append(float(ttr.train_step(model, ttr.make_optimizer(model), a.to(dev),
-                                           p.to(dev), 0.5, moved)))
+        losses.append(float(ttr.train_step(model, a.to(dev), p.to(dev),
+                                           torch.tensor(0.5, device=dev), moved)))
         convs.append(model.params_to_jax()["conv"])
     assert abs(losses[0] - losses[1]) < 1e-4, losses
     assert max(float(np.abs(x - y).max()) for x, y in zip(*convs)) < 1e-3

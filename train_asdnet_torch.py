@@ -116,11 +116,11 @@ def main(argv=None):
 
     model = asdnet.ASDNetTrain(asdnet.init_params(
         asdnet.draw_init_seeds(torch.Generator().manual_seed(0)))).to(device)
-    opt = T.make_optimizer(model)
     gen = torch.Generator(device).manual_seed(1)
     rng = np.random.default_rng(0)
     pool_a_dev = torch.as_tensor(pool_a).to(device)
     pool_p_dev = torch.as_tensor(pool_p).to(device)
+    lrs = T.lr_table(args.steps, args.base_lr, device)
     adaptive_until = args.steps // 2
     loss = torch.zeros(())
     if device.type == "cuda":
@@ -129,8 +129,7 @@ def main(argv=None):
     for step in range(args.steps):
         lo, hi = seq_bounds[step % len(seq_bounds)]
         sel = torch.as_tensor(rng.integers(lo, hi, args.batch)).to(device)
-        loss = T.train_step(model, opt, pool_a_dev[sel], pool_p_dev[sel],
-                            T.lr_schedule(step, args.steps, args.base_lr),
+        loss = T.train_step(model, pool_a_dev[sel], pool_p_dev[sel], lrs[step],
                             T.draw_step(gen, args.batch), adaptive=step < adaptive_until)
         if step % 200 == 0:
             print(f"step {step}/{args.steps} loss {float(loss):.4f} "

@@ -4,7 +4,8 @@ algorithms, on the card.
 
 models/train.py trains with cuDNN's defaults (nondeterministic f32 weight
 gradients, no autotuner), so two runs from one seed end with other
-weights.  This script times train_step at batch 512 (train_asdnet_torch.py's
+weights.  This script times train_step (on the card one CUDA graph a step:
+forward, backward and update) at batch 512 (train_asdnet_torch.py's
 default) in windows of 60 steps, the two settings in turns (defaults,
 deterministic, deterministic, defaults), each window from the same seeded
 model, batch and draws after three warm steps, after one untimed run of
@@ -32,19 +33,19 @@ def run(setting, device):
 
     model = asdnet.ASDNetTrain(asdnet.init_params(
         asdnet.draw_init_seeds(torch.Generator().manual_seed(0)))).to(device)
-    opt = T.make_optimizer(model)
     g = torch.Generator(device).manual_seed(0)
     a, p = T.make_batch(T.draw_batch(g, BATCH))
+    lr = torch.tensor(0.1, device=device)
     flags = torch.backends.cudnn
     saved = flags.deterministic, flags.benchmark
     flags.deterministic, flags.benchmark = setting == "deterministic", False
     try:
         for _ in range(3):
-            T.train_step(model, opt, a, p, 0.1, T.draw_step(g, BATCH))
+            T.train_step(model, a, p, lr, T.draw_step(g, BATCH))
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         for _ in range(STEPS):
-            T.train_step(model, opt, a, p, 0.1, T.draw_step(g, BATCH))
+            T.train_step(model, a, p, lr, T.draw_step(g, BATCH))
         torch.cuda.synchronize(device)
         rate = STEPS / (time.perf_counter() - t0)
     finally:
