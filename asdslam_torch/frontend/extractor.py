@@ -19,7 +19,7 @@ import torch
 from asdslam_torch.config import SlamConfig
 from asdslam_torch.geometry import camera as camera_mod
 from asdslam_torch.ops import fast, patches, pyramid
-from asdslam_torch.utils import graphs
+from asdslam_torch.utils import graphs, tracing
 from asdslam_torch.utils.batching import sequential
 
 
@@ -102,8 +102,11 @@ def make_extractor(cfg: SlamConfig, descriptor_fn, rotate_patches: bool = False)
 
         uv = torch.cat(all_uv, dim=0)
         valid = torch.cat(all_valid, dim=0)
-        desc = describe(torch.cat(all_pat, dim=0))
+        pat = torch.cat(all_pat, dim=0)
+        tracing.stage("patches")  # the stage clock of a stamped step
+        desc = describe(pat)
         desc = torch.where(valid[:, None], desc, torch.zeros_like(desc))
+        tracing.stage("described")
         return FrameFeatures(
             uv=uv, uv_und=uv, level=torch.cat(all_lvl, dim=0),
             angle=torch.cat(all_ang, dim=0), score=torch.cat(all_score, dim=0),

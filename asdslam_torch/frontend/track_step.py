@@ -19,6 +19,12 @@ Differences from the reference, none of them in results:
   sliced off.  Rows that land in the kept part are unique (the matcher has
   resolved duplicates), so no write order can change a result.
 
+With ``stamps=True`` the step runs under a stage clock
+(``utils/tracing.py``) and its result carries the device's time at each
+boundary of ``STAGES``; ``stage_spans`` turns them into the Tracer's
+``device/step`` spans.  The stamps add nine one-thread kernels and change no
+other value.
+
 Match bookkeeping uses "source codes": for current feature f, src[f] in
 [0, N) means "matched to previous-frame feature src[f]", src[f] in
 [N, N + P) means "matched to local-map candidate row src[f] - N", and -1
@@ -27,7 +33,7 @@ means unmatched.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -36,7 +42,14 @@ from asdslam_torch.config import SlamConfig
 from asdslam_torch.frontend import visibility
 from asdslam_torch.geometry import se3
 from asdslam_torch.ops import match
-from asdslam_torch.utils import batching, graphs
+from asdslam_torch.utils import batching, graphs, tracing
+
+# the step's stage boundaries, in order: its start, the patches cut
+# (extractor), the descriptors masked (extractor), the features ready (after
+# any undistortion), the motion searches done, the first pose-only BA done,
+# the local-map search done, the second pose-only BA done, its end
+STAGES = ("start", "patches", "described", "features", "motion_search", "pose_ba1",
+          "local_search", "pose_ba2", "end")
 
 
 class GeomBlock(NamedTuple):
@@ -72,6 +85,27 @@ class TrackResult(NamedTuple):
     crow: torch.Tensor       # [N] int32 candidate-row binding per feature
     #                          (-1 = not a row of the current candidate
     #                          block); fed back as the next call's prev_crow
+    stamps: Optional[torch.Tensor] = None  # [9] int64 ns at each of STAGES
+    #                          with stamps on, else None
+
+
+def stage_spans(stamps):
+    """{Tracer span: seconds} of one step's stamps (ns, in ``STAGES``
+    order): the whole step, and the four stages that the per-layer metrics
+    read; the features' remainder (undistortion) and the final gathers lie
+    in ``device/step`` alone."""
+    t = dict(zip(STAGES, (int(x) for x in stamps)))
+
+    def ns(a, b):
+        return t[b] - t[a]
+
+    return {"device/step": ns("start", "end") * 1e-9,
+            "device/step/detect": ns("start", "patches") * 1e-9,
+            "device/step/describe": ns("patches", "described") * 1e-9,
+            "device/step/search": (ns("features", "motion_search")
+                                   + ns("pose_ba1", "local_search")) * 1e-9,
+            "device/step/pose_ba": (ns("motion_search", "pose_ba1")
+                                    + ns("local_search", "pose_ba2")) * 1e-9}
 
 
 def _scatter_codes(idx, ok, codes, n_out):
@@ -99,7 +133,8 @@ def make_track_step(cfg: SlamConfig, K, extract_fn, device="cuda"):
     there (the image as uint8, the reference's upload).  On a CUDA device the
     step is replayed from a CUDA graph (``utils/graphs.py``, the reference's
     ``jax.jit``), the eager function kept as ``.eager``; on the CPU it is the
-    eager function."""
+    eager function.  ``stamps=True`` in a call stamps ``STAGES`` (a graph of
+    its own on the card)."""
     track_step = _eager_step(cfg, K, extract_fn, device)
     if torch.device(device).type != "cuda":
         return track_step
@@ -123,16 +158,24 @@ def make_batched_track_step(cfg: SlamConfig, K, extract_fn, device="cuda"):
     (``.eager``: the vmapped function); on the CPU it is the vmapped
     function."""
     track_step = _eager_step(cfg, K, extract_fn, device)
-    vmapped = torch.func.vmap(track_step)
-    unbound = torch.func.vmap(lambda *a: track_step(*a, None))
+
+    def unstamped(*a):
+        feat, res = track_step(*a)
+        return feat, res[:-1]  # a vmap returns no None: the stamps' field
+
+    vmapped = torch.func.vmap(unstamped)
+    unbound = torch.func.vmap(lambda *a: unstamped(*a, None))
 
     def batched_step(imgs, poses, velocities, prev_feats, prev_pts, cand_pts,
                      prev_crow=None):
         # what a batch could round otherwise runs once per sequence
         with batching.per_sequence():
             if prev_crow is None:
-                return unbound(imgs, poses, velocities, prev_feats, prev_pts, cand_pts)
-            return vmapped(imgs, poses, velocities, prev_feats, prev_pts, cand_pts, prev_crow)
+                feat, res = unbound(imgs, poses, velocities, prev_feats, prev_pts, cand_pts)
+            else:
+                feat, res = vmapped(imgs, poses, velocities, prev_feats, prev_pts, cand_pts,
+                                    prev_crow)
+        return feat, TrackResult(*res)
 
     if torch.device(device).type != "cuda":
         return batched_step
@@ -143,16 +186,18 @@ def _on_graphs(step, name, crow_shape, device):
     """``step`` replayed from CUDA graphs (``graphs.captured``): the image is
     uploaded first (a graph takes device tensors), and a missing
     ``prev_crow`` is all -1 (no row bound: the same result), so both give
-    one graph.  ``.eager`` is ``step``, ``.graphs`` the captured callable."""
+    one graph.  Keyword arguments (the single step's ``stamps``) pass on as
+    constant leaves of the key.  ``.eager`` is ``step``, ``.graphs`` the
+    captured callable."""
     graph_step = graphs.captured(step, name)
 
     def captured_step(img, prev_pose7, velocity7, prev_feat, prev_pts, cand_pts,
-                      prev_crow=None):
+                      prev_crow=None, **kw):
         if prev_crow is None:
             lead = tuple(prev_pose7.shape[:-1])  # the batch axis of a batched step
             prev_crow = torch.full(lead + crow_shape, -1, dtype=torch.int32, device=device)
         return graph_step(torch.as_tensor(img).to(device), prev_pose7, velocity7, prev_feat,
-                          prev_pts, cand_pts, prev_crow)
+                          prev_pts, cand_pts, prev_crow, **kw)
 
     captured_step.eager = step
     captured_step.graphs = graph_step
@@ -170,14 +215,26 @@ def _eager_step(cfg: SlamConfig, K, extract_fn, device):
     use_kernel = cfg.use_pallas_match
 
     def track_step(img, prev_pose7, velocity7, prev_feat,
-                   prev_pts: GeomBlock, cand_pts: PointBlock, prev_crow=None):
+                   prev_pts: GeomBlock, cand_pts: PointBlock, prev_crow=None,
+                   stamps: bool = False):
         """prev_crow: optional [N] int32, the previous call's ``crow``.
         Candidate rows whose point a previous feature already holds are
-        masked out of the local-map search (None = no rows bound)."""
+        masked out of the local-map search (None = no rows bound).
+        stamps: time ``STAGES`` on the device (``TrackResult.stamps``)."""
+        if not stamps:
+            return step(img, prev_pose7, velocity7, prev_feat, prev_pts, cand_pts, prev_crow)
+        with tracing.stage_clock(STAGES, device) as clock:
+            feat, res = step(img, prev_pose7, velocity7, prev_feat, prev_pts, cand_pts,
+                             prev_crow)
+        return feat, res._replace(stamps=clock.stamps)
+
+    def step(img, prev_pose7, velocity7, prev_feat, prev_pts, cand_pts, prev_crow):
+        tracing.stage("start")
         img = torch.as_tensor(img).to(device)
         if not img.is_floating_point():
             img = img.to(torch.float32) * (1.0 / 255.0)
         feat = extract_fn(img)
+        tracing.stage("features")
 
         pred = se3.pose_retract(prev_pose7, se3.se3_log(*se3.pose_unpack(velocity7)))
 
@@ -212,12 +269,14 @@ def _eager_step(cfg: SlamConfig, K, extract_fn, device):
         pos_f = _scatter_rows(torch.zeros((N, 3), dtype=torch.float32, device=device),
                               idx_m, ok_m, prev_pts.pos)
         has1 = src1 >= 0
+        tracing.stage("motion_search")
 
         inv_s2_f = inv_sigma2[feat.level.to(torch.int64)]
         pose1, inl1, n_track = ba.pose_only_optimize(
             pred, pos_f, feat.uv_und, inv_s2_f, has1 & feat.valid, K,
             rounds=cfg.pose_opt_rounds, iters=cfg.pose_opt_iters)
         src1 = torch.where(inl1, src1, -1)
+        tracing.stage("pose_ba1")
 
         # ---- local-map stage (TrackLocalMap) ----------------------------- #
         P = cand_pts.pos.shape[0]
@@ -244,11 +303,13 @@ def _eager_step(cfg: SlamConfig, K, extract_fn, device):
         src2 = _scatter_codes(idx_c, ok_c, N + torch.arange(P, device=device), N)
         pos_f = _scatter_rows(pos_f, idx_c, ok_c, cand_pts.pos)
         src = torch.where(src1 >= 0, src1, src2)
+        tracing.stage("local_search")
 
         pose2, inl2, n_in = ba.pose_only_optimize(
             pose1, pos_f, feat.uv_und, inv_s2_f, (src >= 0) & feat.valid, K,
             rounds=cfg.pose_opt_rounds, iters=cfg.pose_opt_iters)
         src = torch.where(inl2, src, -1)
+        tracing.stage("pose_ba2")
 
         # velocity = T_cur * T_prev^-1 (Tracking.cc's mVelocity update)
         Rv, tv = se3.compose(*se3.pose_unpack(pose2),
@@ -284,6 +345,7 @@ def _eager_step(cfg: SlamConfig, K, extract_fn, device):
         res = TrackResult(pose=pose2, velocity=vel, src=src,
                           n_motion=n_motion, n_track=n_track, n_inliers=n_in,
                           next_geom=next_geom, crow=crow)
+        tracing.stage("end")
         return feat, res
 
     return track_step

@@ -133,17 +133,21 @@ def _fetch(*tensors):
 
 
 def _fetch_small(res):
-    """(pose, velocity, src, n_motion, n_track, n_inliers) of a step's
-    result as numpy, in ONE device-to-host transfer: the floats travel as
-    their int32 bit patterns beside the int32 codes and counts."""
-    packed = torch.cat([
-        res.pose.view(torch.int32), res.velocity.view(torch.int32),
-        res.src.to(torch.int32),
-        torch.stack([res.n_motion, res.n_track, res.n_inliers]).to(torch.int32)]).cpu().numpy()
+    """(pose, velocity, src, n_motion, n_track, n_inliers, stamps) of a
+    step's result as numpy, in ONE device-to-host transfer: the floats
+    travel as their int32 bit patterns beside the int32 codes and counts,
+    the int64 stamps (None when the step took none) as int32 pairs."""
+    parts = [res.pose.view(torch.int32), res.velocity.view(torch.int32),
+             res.src.to(torch.int32),
+             torch.stack([res.n_motion, res.n_track, res.n_inliers]).to(torch.int32)]
+    if res.stamps is not None:
+        parts.append(res.stamps.view(torch.int32))
+    packed = torch.cat(parts).cpu().numpy()
     n = res.src.shape[0]
     pose, velocity = packed[:7].view(np.float32).copy(), packed[7:14].view(np.float32).copy()
-    n_motion, n_track, n_in = (int(x) for x in packed[14 + n:])
-    return pose, velocity, packed[14:14 + n], n_motion, n_track, n_in
+    n_motion, n_track, n_in = (int(x) for x in packed[14 + n:17 + n])
+    stamps = packed[17 + n:].copy().view(np.int64) if res.stamps is not None else None
+    return pose, velocity, packed[14:14 + n], n_motion, n_track, n_in, stamps
 
 
 class Tracker:
@@ -525,7 +529,8 @@ class Tracker:
                 crow = _remap_crow(crow, self._remap[1])
             with self.tracer.span("dispatch"):
                 return self._fused(img, pres.pose, pres.velocity, pfeat,
-                                   pres.next_geom, self._device_cand, crow)
+                                   pres.next_geom, self._device_cand, crow,
+                                   stamps=self.tracer.enabled)
         # chain restart from host state
         self._join_mapping()
         if not self._fused_eligible():
@@ -542,7 +547,14 @@ class Tracker:
             return self._fused(img, self._dev(self.last_pose),
                                self._dev(self.velocity), self.last_feat,
                                self._build_prev_geom(), self._device_cand,
-                               self._dev(self._host_crow()))
+                               self._dev(self._host_crow()), stamps=self.tracer.enabled)
+
+    def _add_stage_spans(self, stamps):
+        """A committed step's device times (its stamps, taken while the
+        tracer is on) as the tracer's ``device/step`` spans."""
+        if stamps is not None:
+            for name, seconds in track_step_mod.stage_spans(stamps).items():
+                self.tracer.add(name, seconds)
 
     def _commit_fused(self, frame_id: int, feat, res, cand_ids, epoch) -> bool:
         """Fetch a dispatched frame's small result bundle (one transfer) and
@@ -553,7 +565,7 @@ class Tracker:
         cfg = self.cfg
         store = self.store
         with self.tracer.span("kernel"):
-            pose, velocity, src, n_motion, n_track, n_in = _fetch_small(res)
+            pose, velocity, src, n_motion, n_track, n_in, stamps = _fetch_small(res)
         if (n_motion < cfg.min_motion_matches
                 or n_track < cfg.min_track_matches
                 or n_in < cfg.min_localmap_matches):
@@ -562,6 +574,7 @@ class Tracker:
             self._invalidate_device_state()
             self._process_sync(None, feat, frame_id)
             return False
+        self._add_stage_spans(stamps)
 
         overlap = self._map_thread is not None
         # decode match source codes -> map-point bindings (via the candidate
@@ -780,12 +793,13 @@ class Tracker:
             feat, res = self._fused(
                 self._upload_image(image), self._dev(self.last_pose),
                 self._dev(self.velocity), self.last_feat, prev_geom, self._device_cand,
-                self._dev(self._host_crow()))
-            pose, velocity, src, n_motion, n_track, n_in = _fetch_small(res)
+                self._dev(self._host_crow()), stamps=self.tracer.enabled)
+            pose, velocity, src, n_motion, n_track, n_in, stamps = _fetch_small(res)
         if (n_motion < cfg.min_motion_matches
                 or n_track < cfg.min_track_matches
                 or n_in < cfg.min_localmap_matches):
             return feat, False
+        self._add_stage_spans(stamps)
         self._device_geom = res.next_geom  # stays on device
 
         # decode match source codes -> map-point bindings

@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` exports a plain C launch function.  At first use it
 is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``<repo>/build/kernels/`` and loaded with ``ctypes``; the library's name
 carries a hash of the source and flags, so an edited source rebuilds.  Only
-the sources in the checkout are used.  Building and loading hold one
-lock, so two threads at first use build once.
+the sources in the checkout are used.  The first load of any source builds
+every source of ``SOURCES`` that has no current library, all in one
+parallel pass.  Building and loading hold one lock, so two threads at first
+use build once.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("masked_nn",)
+SOURCES = ("masked_nn", "stamp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -78,11 +80,12 @@ def _build(names: Iterable[str]) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<name>.cu``, built first if needed
+    (with every other source of ``SOURCES`` that needs it)."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            _build([name])
+            _build(SOURCES if name in SOURCES else (name,))
             lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib

@@ -24,7 +24,9 @@ from asdslam_torch.parallel.dist import Mesh
 
 def _take(x, b, device):
     """Sequence ``b`` (an index or a slice) of a (nested) NamedTuple of
-    batched tensors."""
+    batched tensors (a None field stays None)."""
+    if x is None:
+        return None
     if isinstance(x, tuple):
         return type(x)(*(_take(f, b, device) for f in x))
     return x[b].to(device)
@@ -32,7 +34,9 @@ def _take(x, b, device):
 
 def _cat(items, device):
     """The shards' blocks of a (nested) NamedTuple joined along the leading
-    sequence axis, on ``device``."""
+    sequence axis, on ``device`` (a None field stays None)."""
+    if items[0] is None:
+        return None
     if isinstance(items[0], tuple):
         return type(items[0])(*(_cat([it[j] for it in items], device)
                                 for j in range(len(items[0]))))

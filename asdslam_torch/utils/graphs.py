@@ -28,7 +28,9 @@ replays it:
   becomes part of the outer graph (the extractor inside the fused step); so
   does a call inside a ``torch.func`` transform (its tensors are the
   transform's wrappers: the extractor inside the vmapped multi-sequence
-  step).
+  step), and a call while a stage clock is open in the calling thread
+  (``utils/tracing.py``: the extractor inside a stamped step, whose stamps
+  the step's own warm-up and capture take).
 - There is no route around the graph on the card: a failed capture raises.
   Nothing captured may read back to the host (a ``.item()``, a device to
   host copy, a host-to-device copy from pageable memory): the capture runs
@@ -54,6 +56,10 @@ replays it:
   algorithms a graph records.
 - ``last_call()`` says what the calling thread's last call of a captured
   callable did ("eager", "warm-up", "capture" or "replay"), for timings.
+- A warm-up and a capture are spans ``warm-up:<name>`` and
+  ``capture:<name>`` of the calling thread's active tracer
+  (``utils/tracing.py``), nested under the span that pays for them; with no
+  active tracer they record nothing.
 
 Two threads must not share a stream while they call captured functions (the
 tracker and the mapping worker each have their own).  Warm-ups and captures
@@ -71,6 +77,8 @@ import time
 import weakref
 
 import torch
+
+from asdslam_torch.utils import tracing
 
 MAX_GRAPHS = 16   # keys kept per captured callable
 
@@ -251,7 +259,7 @@ class Captured:
         sig = _flatten((args, kwargs), leaves, modules)
         device = _graph_device(leaves)
         if (device is None or getattr(_tls, "effects", None) is not None or _capturing()
-                or _transformed(leaves)):
+                or _transformed(leaves) or tracing.clock_open() is not None):
             out = self.eager(*args, **kwargs)
             _tls.last = "eager"
             return out
@@ -271,14 +279,15 @@ class Captured:
                 self._entries.move_to_end(key)
         with torch.enable_grad() if self.grad else torch.no_grad():
             if entry is None:
-                with _capture_lock:
+                with tracing.active_span(f"warm-up:{self.name}"), _capture_lock:
                     out = _warm(self.eager, args, kwargs, device)
                 _tls.last = "warm-up"
                 return out
             kind = "replay"
             if entry.graph is None:
                 kind = "capture"
-                self._capture(entry, args, kwargs, leaves, device)
+                with tracing.active_span(f"capture:{self.name}"):
+                    self._capture(entry, args, kwargs, leaves, device)
             for dst, src in zip(entry.inputs, leaves):
                 dst.copy_(src)
             _replay(entry.graph)

@@ -3299,6 +3299,10 @@ def phase13(device, card):
 
 
 def tree_leaves(x):
+    """The leaves of nested tuples and lists; a None field (a step's result
+    without stamps) is no leaf, as in torch's pytree."""
+    if x is None:
+        return []
     if isinstance(x, (tuple, list)):
         return [leaf for f in x for leaf in tree_leaves(f)]
     return [x]
