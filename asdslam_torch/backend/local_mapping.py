@@ -125,8 +125,7 @@ class LocalMapper:
         store = self.store
         mps = store.kf_mp[kf]
         uniq = np.unique(mps[mps >= 0])
-        for m in uniq:
-            store.compute_distinctive_descriptor(int(m))
+        store.compute_distinctive_descriptors(uniq)
         store.update_normals_batch(uniq, self.scale_factors)
         # spanning-tree parent: strongest covisible earlier KF (the
         # reference's ChangeParent on first UpdateConnections)

@@ -914,8 +914,7 @@ class Tracker:
                 p = store.kf_pose[k].copy()
                 p[4:] /= med
                 store.set_kf_pose(k, p)  # also refreshes the kf_center table
-            for m in mps:
-                store.compute_distinctive_descriptor(m)
+            store.compute_distinctive_descriptors(mps)
             store.update_normals_batch(np.asarray(mps, np.int64), self.scale_factors)
 
         self.state = OK

@@ -10,9 +10,11 @@ fixed-shape slices assembled from it.  Per-keyframe feature tensors
 (descriptors, keypoints) stay on the DEVICE as the FrameFeatures produced at
 extraction time, so matching/BA never re-uploads them.
 
-The one change from the original is how ``add_keyframe`` fetches the
-features (torch tensors here); ``from_arrays`` fills a store from the numpy
-arrays of another, for tests that start both packages from one state.
+The changes from the original: how ``add_keyframe`` fetches the features
+(torch tensors here); ``from_arrays``, which fills a store from the numpy
+arrays of another, for tests that start both packages from one state; and
+``compute_distinctive_descriptors``, the one-point refresh over a block of
+points with the same bits.
 
 Key relations:
 - kf_mp[k, i]  = map-point id observed by feature i of keyframe k (-1 = none)
@@ -28,6 +30,8 @@ from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+_DESC_CHUNK = 1 << 22  # float32 elements of one chunk's pairwise differences
 
 
 class HostFeat(NamedTuple):
@@ -401,6 +405,29 @@ class MapStore:
         d2 = ((D[:, None, :] - D[None, :, :]) ** 2).sum(-1)
         med = np.median(d2, axis=1)
         self.mp_desc[mp] = D[int(np.argmin(med))]
+
+    def compute_distinctive_descriptors(self, mps):
+        """``compute_distinctive_descriptor`` of every point of ``mps``, without
+        a Python loop over the points: the points of one observation count
+        at a time, in chunks, each row reduced as the one-point version
+        reduces it, so every descriptor is the same bits."""
+        mps = np.asarray(mps, np.int64)
+        n_obs = self.mp_n_obs[mps]
+        for n in np.unique(n_obs[n_obs > 0]):
+            group = mps[n_obs == n]
+            kfs = self.mp_obs_kf[group, :n]
+            feats = self.mp_obs_feat[group, :n]
+            first = self.kf_host[int(kfs[0, 0])].desc  # every keyframe's: [n_feat, D] float32
+            D = np.empty(kfs.shape + first.shape[1:], first.dtype)
+            for k in np.unique(kfs):
+                at = kfs == k
+                D[at] = self.kf_host[k].desc[feats[at]]
+            step = max(1, _DESC_CHUNK // (n * n * D.shape[-1]))
+            for s in range(0, len(group), step):
+                d = D[s:s + step]
+                d2 = ((d[:, :, None, :] - d[:, None, :, :]) ** 2).sum(-1)
+                best = np.argmin(np.median(d2, axis=2), axis=1)
+                self.mp_desc[group[s:s + step]] = d[np.arange(len(d)), best]
 
     def update_normal_and_depth(self, mp: int, scale_factors, level_of_obs=None):
         """MapPoint::UpdateNormalAndDepth: mean viewing direction + scale

@@ -320,11 +320,14 @@ def import_map(data: VisualMapData, store: MapStore, scale_factors,
             if mi >= 0 and mi in mp_remap:
                 store.add_observation(mp_remap[mi], k, j)
 
+    kept = []
     for m in mp_remap.values():
         if store.mp_n_obs[m] == 0:
             store.erase_map_point(m)
-            continue
-        store.compute_distinctive_descriptor(m)
+        else:
+            kept.append(m)
+    store.compute_distinctive_descriptors(kept)
+    for m in kept:
         store.update_normal_and_depth(m, scale_factors)
     return mp_remap
 

@@ -22,7 +22,10 @@ Phases, each of which raises on failure (exit code != 0):
    corridor from a hand-built state, with launch counts reset just before
    and read just after; one frame is re-run with the plain matcher and
    compared, and the masked_nn arguments of that frame's two searches are
-   recorded and checked as in phase 2;
+   recorded and checked as in phase 2; every pose_lm_step and pose_lm_gate
+   call of that frame's two pose-only BAs is recorded and held against its
+   plain version on the same inputs (and run twice: the same bits), and
+   pose_lm's launches are counted over the chain (90 a frame);
 4. time the step and each kernel (CUDA events, the whole wrapper call) beside
    its plain version and its bound, with the gated-in pairs, the share of
    live tile pairs and the host's enqueue time; the profiler's readings
@@ -34,7 +37,8 @@ Phases, each of which raises on failure (exit code != 0):
    mapping inline), twice from fresh Systems; check the bootstrap, the
    keyframes and their mapping passes, the tracked share, finiteness, the
    sim3 ATE against the renderer's ground truth, that masked_nn was launched
-   from the fused step and from the fuse, and that both runs give bitwise
+   from the fused step and from the fuse, that pose_lm was launched 90
+   times from each fused step, and that both runs give bitwise
    equal trajectories; hold masked_nn against its plain version on a fuse
    call's recorded inputs and time it; print the bootstrap's, a mapping
    pass's and the frames' times;
@@ -660,6 +664,118 @@ def record_searches(step, frames_u8, state, cand):
     return calls[0], calls[2]
 
 
+# --------------------------------------------------------------------------- #
+# pose_lm: motion-only BA's LM iteration and gate against their plain versions
+# --------------------------------------------------------------------------- #
+POSE_LM_TOL = 1e-5         # relative gap of pose and cost to the plain version
+POSE_LM_GATE_BAND = 1e-4   # a row's chi2 this near the gate may fall on either side
+POSE_LM_A_CALL = 1 + 4 * (10 + 1)   # launches of one pose_only_optimize at 4 x 10
+POSE_LM_A_STEP = 2 * POSE_LM_A_CALL  # the fused step's two calls
+
+
+def record_pose_lm(step, frames_u8, state, cand):
+    """(args, kwargs) of every pose_lm_step and pose_lm_gate call of one
+    chained frame, copied before the call (the wrappers are replaced for
+    that frame only), from the step's ``.eager``, as ``record_searches``:
+    (steps, gates) in call order."""
+    from asdslam_torch.ops import pose_lm
+
+    steps, gates = [], []
+    real_step, real_gate = pose_lm.pose_lm_step, pose_lm.pose_lm_gate
+
+    def recorder(calls, fn):
+        def wrapper(*a, **kw):
+            calls.append((clone_tree(a), dict(kw)))
+            return fn(*a, **kw)
+        return wrapper
+
+    pose_lm.pose_lm_step = recorder(steps, real_step)
+    pose_lm.pose_lm_gate = recorder(gates, real_gate)
+    try:
+        run_chain(getattr(step, "eager", step), frames_u8, state, cand, 1, 1)
+    finally:
+        pose_lm.pose_lm_step, pose_lm.pose_lm_gate = real_step, real_gate
+    if len(steps) + len(gates) != POSE_LM_A_STEP or len(gates) != 10:
+        raise AssertionError(f"one frame made {len(steps)} pose_lm_step and {len(gates)} "
+                             f"pose_lm_gate calls, not {POSE_LM_A_STEP} with 10 gates")
+    return steps, gates
+
+
+def _rel(got, ref):
+    """Largest difference over the reference's largest magnitude."""
+    return float((got.double() - ref.double()).abs().max()
+                 / ref.double().abs().max().clamp(min=1e-30))
+
+
+def check_pose_lm(steps, gates):
+    """Each recorded call, the kernel (twice: the same bits) against its
+    plain version on the same inputs.  A step: pose and cost within
+    POSE_LM_TOL, the same accept and damping, except where the trial cost
+    ties the current one within POSE_LM_TOL (then each side's cost is that
+    close to the current one).  A gate: the same inliers except rows whose
+    chi2 lies within POSE_LM_GATE_BAND of the gate, and a cost within
+    POSE_LM_TOL of the plain cost over the kernel's inliers.  Returns the
+    largest relative gap, the accept ties and the gate's flipped rows."""
+    import torch
+    from asdslam_torch.ops import pose_lm
+
+    worst, ties, flips = 0.0, 0, 0
+    for i, (a, kw) in enumerate(steps):
+        got = pose_lm.pose_lm_step(*a, **kw)
+        if not all(torch.equal(x, y) for x, y in zip(got, pose_lm.pose_lm_step(*a, **kw))):
+            raise AssertionError(f"pose_lm_step call {i}: two runs differ")
+        ref = pose_lm.step_plain(*a, **kw)
+        if torch.equal(got[1], ref[1]):
+            gap = max(_rel(got[0], ref[0]), _rel(got[2], ref[2]))
+        else:  # one side accepted, the other not
+            ties += 1
+            gap = max(_rel(got[2], a[2]), _rel(ref[2], a[2]))
+        if not gap <= POSE_LM_TOL:
+            raise AssertionError(f"pose_lm_step call {i}: relative gap {gap:.3g} to the plain "
+                                 f"version (lam {float(got[1]):.3g} / {float(ref[1]):.3g})")
+        worst = max(worst, gap)
+    for i, (a, kw) in enumerate(gates):
+        inl_k, cost_k = pose_lm.pose_lm_gate(*a, **kw)
+        again = pose_lm.pose_lm_gate(*a, **kw)
+        if not (torch.equal(inl_k, again[0]) and torch.equal(cost_k, again[1])):
+            raise AssertionError(f"pose_lm_gate call {i}: two runs differ")
+        inl_p, _ = pose_lm.gate_plain(*a, **kw)
+        pose, pts, uv, inv, valid, K, chi2_th = a[:7]
+        obs = pose_lm._obs(pts, uv, inv, valid)
+        chi2, _ = pose_lm._chi2(pose, pts, obs, K)
+        near = (chi2 - chi2_th).abs() <= POSE_LM_GATE_BAND
+        if not torch.equal(inl_k & ~near, inl_p & ~near):
+            raise AssertionError(f"pose_lm_gate call {i}: inliers differ away from the gate")
+        flips += int((inl_k != inl_p).sum())
+        gap = _rel(cost_k, pose_lm._cost(pose, pts, obs, K, inl_k))
+        if not gap <= POSE_LM_TOL:
+            raise AssertionError(f"pose_lm_gate call {i}: cost gap {gap:.3g}")
+        worst = max(worst, gap)
+    return worst, ties, flips
+
+
+def pose_lm_times(steps, gates):
+    """Each operator on a recorded call of the step (the first iteration,
+    the first gating call): the whole wrapper call and its plain version by
+    CUDA events (``time_ms``), and the bound from its bytes (a step reads
+    points, uv, inv_sigma2 and the inlier mask in each of its two passes; a
+    gate reads them once and writes the mask) over the memory rate."""
+    from asdslam_torch.ops import pose_lm
+    from asdslam_torch.utils.roofline import H100
+
+    gate = next((a, kw) for a, kw in gates if kw.get("gate", True))
+    out = []
+    for name, (a, kw), plain, row_bytes in (
+            ("pose_lm_step", steps[0], pose_lm.step_plain, 2 * 25),
+            ("pose_lm_gate", gate, pose_lm.gate_plain, 26)):
+        kernel = getattr(pose_lm, name)
+        n = a[3 if name == "pose_lm_step" else 1].shape[0]
+        out.append(dict(op=name, n=n, ms=time_ms(lambda: kernel(*a, **kw), 50),
+                        plain_ms=time_ms(lambda: plain(*a, **kw), 5),
+                        bound_ms=row_bytes * n / H100["bytes"] * 1e3, bound_by="bytes"))
+    return out
+
+
 def orb_problem(cfg, extract, frames_u8, device):
     """masked_nn's arguments for a motion search between the features that
     the ORB extractor ``extract`` finds in two corridor frames (rows: frame
@@ -835,22 +951,27 @@ def run_system(cfg, frames_u8, weights, device, record_fuse=False):
     """One fresh System over the frames.  Returns the system, per frame
     whether it was tracked, its host-clock ms and whether it inserted a
     keyframe, each mapping pass's report, masked_nn's launches from the
-    fused step, from the fuse and in all, and (``record_fuse``) the
+    fused step, from the fuse and in all, pose_lm's launches from the fused
+    step (with its number of calls) and in all, and (``record_fuse``) the
     arguments of the fuse's masked_nn calls."""
     import torch
     from asdslam_torch.frontend import track_step as ts
     from asdslam_torch.ops import masked_nn as k1
+    from asdslam_torch.ops import pose_lm
     from asdslam_torch.system import System
 
     system = System(cfg, asdnet_params=weights, device=device)
-    counts = {"step": 0, "fuse": 0}
+    counts = {"step": 0, "fuse": 0, "step_calls": 0, "step_pose_lm": 0}
     fuse_calls = []
 
     def counted(fn, key):
         def wrapper(*a, **kw):
-            before = k1.masked_nn.launches
+            before, before_lm = k1.masked_nn.launches, pose_lm.launches
             out = fn(*a, **kw)
             counts[key] += k1.masked_nn.launches - before
+            if key == "step":
+                counts["step_calls"] += 1
+                counts["step_pose_lm"] += pose_lm.launches - before_lm
             return out
         return wrapper
 
@@ -887,7 +1008,7 @@ def run_system(cfg, frames_u8, weights, device, record_fuse=False):
     system.local_mapper.process = process
     tracked, ms, is_kf = [], [], []
     torch.cuda.synchronize()
-    k1.masked_nn.launches = 0
+    k1.masked_nn.launches = pose_lm.launches = 0
     for i, frame in enumerate(frames_u8):
         n_kf = system.store.n_kf
         t0 = time.perf_counter()
@@ -898,7 +1019,8 @@ def run_system(cfg, frames_u8, weights, device, record_fuse=False):
         is_kf.append(system.store.n_kf > n_kf)
     launches = k1.masked_nn.launches
     return dict(system=system, tracked=tracked, ms=np.array(ms), is_kf=np.array(is_kf),
-                passes=passes, counts=counts, launches=launches, fuse_calls=fuse_calls)
+                passes=passes, counts=counts, launches=launches, fuse_calls=fuse_calls,
+                pose_lm_launches=pose_lm.launches)
 
 
 def check_system(run, again, poses_gt, cfg):
@@ -935,6 +1057,9 @@ def check_system(run, again, poses_gt, cfg):
     c = run["counts"]
     if c["step"] < 2 * sum(after) * 0.9 or c["fuse"] < 2:
         raise AssertionError(f"masked_nn launches: fused step {c['step']}, fuse {c['fuse']}")
+    if not c["step_calls"] or c["step_pose_lm"] != POSE_LM_A_STEP * c["step_calls"]:
+        raise AssertionError(f"pose_lm launches: {c['step_pose_lm']} from {c['step_calls']} "
+                             f"fused steps, not {POSE_LM_A_STEP} each")
     t2 = again["system"].frame_trajectory()
     if len(t2) != len(traj) or any(fa != fb or pa.tobytes() != pb.tobytes()
                                    for (fa, pa), (fb, pb) in zip(traj, t2)):
@@ -947,7 +1072,8 @@ def check_system(run, again, poses_gt, cfg):
         f"{[(b['n_opt'], b['points'], b['obs'], b['k_max']) for b in bas]} as (n_opt, P, O, Kmax)), "
         f"sim3 ATE {ate:.4f} m (bar {ATE_BAR} m; the JAX package on a CPU: {REFERENCE_ATE} m), "
         f"masked_nn launches: fused step {c['step']}, fuse {c['fuse']}, all {run['launches']}; "
-        f"a second run's trajectory is bitwise equal")
+        f"pose_lm launches: {c['step_pose_lm']} from {c['step_calls']} fused steps, all "
+        f"{run['pose_lm_launches']}; a second run's trajectory is bitwise equal")
     return ate
 
 
@@ -2699,8 +2825,12 @@ def phase11(cfg, device, card, loop_system, errs, k1_cases):
                 t1 = time.perf_counter()
                 lc._global_ba()
                 torch.cuda.synchronize()
+                # the graph builds of the call are spans too (warm-up:<site>,
+                # capture:<site>); the check is about the solver's own spans
+                spans = [s for s in lc.tracer.spans
+                         if not s.rsplit("/", 1)[-1].startswith(("warm-up:", "capture:"))]
                 gba[k] = dict(ms=(time.perf_counter() - t1) * 1e3, store=lc.store,
-                              spans=sorted(lc.tracer.spans))
+                              spans=sorted(spans))
                 if (k > 1) != (gba[k]["spans"] == ["gba_mesh"]):
                     raise AssertionError(f"11b n_devices {k}: spans {gba[k]['spans']}")
             a, b = gba[GBA_MESHES[0]]["store"], gba[GBA_MESHES[1]]["store"]
@@ -4555,6 +4685,7 @@ def main():
     from asdslam_torch.config import SlamConfig
     from asdslam_torch.frontend import track_step as ts
     from asdslam_torch.ops import masked_nn as k1
+    from asdslam_torch.ops import pose_lm
 
     device = "cuda"
     t_main = time.perf_counter()
@@ -4599,12 +4730,14 @@ def main():
     K, extract, frames_u8, poses, cand, state = build_tracking(cfg, device)
     step = ts.make_track_step(cfg, K, extract, device=device)
     torch.cuda.synchronize()
-    k1.masked_nn.launches = 0
+    k1.masked_nn.launches = pose_lm.launches = 0
     results = run_chain(step, frames_u8, state, cand, 1, N_CHAINED)
     torch.cuda.synchronize()
-    launches = k1.masked_nn.launches
+    launches, launches_lm = k1.masked_nn.launches, pose_lm.launches
     if launches != 3 * N_CHAINED:  # both motion radii and the local map, every frame
         raise AssertionError(f"masked_nn launched {launches} times in {N_CHAINED} frames")
+    if launches_lm != POSE_LM_A_STEP * N_CHAINED:  # two pose-only BAs, every frame
+        raise AssertionError(f"pose_lm launched {launches_lm} times in {N_CHAINED} frames")
     for i, res in enumerate(results):
         fields = [("pose", res.pose), ("velocity", res.velocity)]
         fields += [(f"next_geom.{k}", v) for k, v in res.next_geom._asdict().items()]
@@ -4613,8 +4746,8 @@ def main():
                 raise AssertionError(f"frame {i + 1}: non-finite {name}")
     n_in = [int(r.n_inliers) for r in results]
     pose_err = [float((r.pose - poses[i + 1]).abs().max()) for i, r in enumerate(results)]
-    log(f"main path: {N_CHAINED} chained frames, masked_nn launches {launches}, "
-        f"n_inliers {n_in}")
+    log(f"main path: {N_CHAINED} chained frames, masked_nn launches {launches}, pose_lm "
+        f"launches {launches_lm}, n_inliers {n_in}")
     log(f"  max |pose - ground truth| per frame: {[round(e, 4) for e in pose_err]}")
     if min(n_in) < cfg.min_localmap_matches:
         raise AssertionError(f"tracking lost: n_inliers {n_in}")
@@ -4635,6 +4768,14 @@ def main():
         err, pairs_in, share = check_k1(case, args)
         errs.append(err)
         k1_cases[case] = (args, pairs_in, share)
+    # that frame's pose-only BAs, each kernel call on its real inputs
+    lm_steps, lm_gates = record_pose_lm(step, frames_u8, state, cand)
+    lm_err, lm_ties, lm_flips = check_pose_lm(lm_steps, lm_gates)
+    log(f"pose_lm frame 1, N = {lm_steps[0][0][3].shape[0]}: {len(lm_steps)} pose_lm_step and "
+        f"{len(lm_gates)} pose_lm_gate calls each against its plain version on its inputs, "
+        f"largest relative gap of pose or cost {lm_err:.3g} (bar {POSE_LM_TOL}), accept ties "
+        f"{lm_ties}, gate rows flipped within {POSE_LM_GATE_BAND} of the gate {lm_flips}; "
+        f"two runs bitwise equal")
 
     # ---- 4. timings ---------------------------------------------------------- #
     run_chain(step, frames_u8, state, cand, 1, 2)  # warm
@@ -4790,6 +4931,11 @@ def main():
                            bound_ms=bound, bound_by=bound_by,
                            gated_in_pairs=pairs_in, live_tile_share=share,
                            host_enqueue_ms=k1_host_ms(args)))
+    lm_shapes = pose_lm_times(lm_steps, lm_gates)
+    for sh in lm_shapes:
+        log(f"{sh['op']} frame 1, N = {sh['n']}: kernel {sh['ms']:.4f} ms (whole wrapper call), "
+            f"plain {sh['plain_ms']:.4f} ms, bound {sh['bound_ms']:.6f} ms ({sh['bound_by']}) "
+            f"[{card}]")
     stamp("K1 timings")
     busy, wall, k1_step_ms, top = device_busy(step, frames_u8, state, cand)
     log(f"profiler over 3 chained frames of the captured step: device busy {busy:.1f} ms of "
@@ -4841,11 +4987,23 @@ def main():
         "max_abs_err": max(errs),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
-        "library_ms": None, "by_shape": shapes}],
+        "library_ms": None, "by_shape": shapes}, {
+        "name": "pose_lm", "route": "cuda",
+        "source": "asdslam_torch/csrc/pose_lm.cu",
+        "replaces": None, "reference": "asdslam_tpu/backend/ba.py::pose_only_optimize",
+        "launches": launches_lm + first["pose_lm_launches"] + second["pose_lm_launches"],
+        "max_rel_err": lm_err, "accept_ties": lm_ties, "gate_flips": lm_flips,
+        "ms": lm_shapes[0]["ms"], "plain_ms": lm_shapes[0]["plain_ms"],
+        "bound_ms": lm_shapes[0]["bound_ms"], "bound_by": lm_shapes[0]["bound_by"],
+        "library_ms": None, "by_shape": lm_shapes}],
         "fused_step_fps": fps, "frame_ms_median": float(np.median(lat)),
         "frame_ms_p85": float(np.percentile(lat, 85)),
         "frame_ms_median_after_system": float(np.median(lat_after)), "layers_ms": layers,
         "device_busy_ms": busy, "device_wall_ms": wall,
+        "pose_lm_launches_by_path": {"chained_step": launches_lm,
+                                     "system": first["pose_lm_launches"],
+                                     "system_fused_step": first["counts"]["step_pose_lm"],
+                                     "system_again": second["pose_lm_launches"]},
         "launches_by_path": {"chained_step": launches, "system": launches_system,
                              "system_fused_step": first["counts"]["step"],
                              "system_fuse": first["counts"]["fuse"],

@@ -22,7 +22,9 @@ FILES = (sorted((ROOT / "asdslam_torch").rglob("*.py")) + [ROOT / "chip_smoke.py
          + [ROOT / s for s in SCRIPTS + CARD_SCRIPTS])
 FORBIDDEN = ("jax", "jaxlib", "asdslam_tpu")
 # calls that launch a hand-written kernel, directly or one level up
-LAUNCHES = ("masked_nn_launch", "masked_nn", "search_projection", "fuse_pairs")
+LAUNCHES = ("masked_nn_launch", "masked_nn", "search_projection", "fuse_pairs",
+            "pose_lm_step_launch", "pose_lm_gate_launch", "pose_lm_step", "pose_lm_gate",
+            "pose_only_optimize")
 # every module of the port, slice by slice
 MODULES = (
     "ops/masked_nn.py", "ops/match.py", "backend/ba.py", "estimators/linalg.py",
@@ -50,6 +52,8 @@ MODULES = (
     "utils/roofline.py",
     # the CUDA-graph capture of the hot paths (the reference's jax.jit)
     "utils/graphs.py",
+    # motion-only BA's kernels and the residual model they share with BA
+    "ops/pose_lm.py", "geometry/reprojection.py",
 )
 
 

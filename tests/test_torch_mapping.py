@@ -312,11 +312,16 @@ def test_map_store_same_calls():
             ("replace_map_point", (8, 6)), ("erase_map_point", (9,)),
             ("add_observation", (9, 1, 3)),  # on an erased point: ignored
             ("set_kf_pose", (2, pose * 1.01))]
-    ops += [("compute_distinctive_descriptor", (m,)) for m in range(30)]
+    ops += [("compute_distinctive_descriptor", (m,)) for m in range(0, 30, 2)]
+    ops += [("compute_distinctive_descriptors", (np.arange(1, 30, 2),))]
     ops += [("update_normals_batch", (np.arange(30), scales)),
             ("update_normal_and_depth", (12, scales))]
     for name, args in ops:
-        getattr(js, name)(*args)
+        if name == "compute_distinctive_descriptors":  # the reference's one-point loop
+            for m in args[0]:
+                js.compute_distinctive_descriptor(int(m))
+        else:
+            getattr(js, name)(*args)
         getattr(ts, name)(*args)
     _assert_stores_equal(js, ts)
     assert ts.max_kfs == 8 and ts.max_pts == 32 and ts.max_obs >= 4
