@@ -1,9 +1,9 @@
 """The comparisons that decide ``correct``.
 
-Three numbers, each against a limit that the configuration's file states
-(``limits``), each worked out by the plain references of ``reference.py``
-from the benchmark's own inputs, and each judging what the timed path
-produced:
+Three numbers, and a fourth where the configuration's file names it, each
+against a limit that the file states (``limits``), each worked out by the
+plain references of ``reference.py`` from the benchmark's own inputs, and
+each judging what the timed path produced:
 
 - ``ate_share``: the window's poses against the generator's ground truth:
   the RMS error of the tracked camera centres after the least-squares
@@ -18,6 +18,23 @@ produced:
   program's pick above the reference's best distance, and of the gaps of
   its best and second distances to the reference's.  A row whose gating
   disagrees with the reference's, or whose pick is gated out, reads inf.
+- ``loop_gap`` (only where ``limits`` names it): the closure that the loop
+  correction left at the loop's two ends: for each loop closed in the
+  window, the closure error of its lap in the keyframes' poses after
+  ``finish()`` after a similarity fit onto the truth, as a share of the
+  lap's length; inf where no loop closed in the window.  It does not judge
+  how the correction is spread over the lap's interior (the essential
+  graph, global BA).  Every keyframe the run made counts, culled ones
+  too, each at the pose the map holds for it: a culled keyframe keeps its
+  spanning-tree parent, so every essential-graph optimisation after its
+  cull moves it with the graph, while local and global BA move only the
+  keyframes that still observe points.  The frames' trajectory is not
+  judged, neither the live one (a correction moves keyframes after the
+  fact) nor the recomposed one (each frame keeps its offset from its
+  reference keyframe in the scale of its time, so a correction that
+  rescales the keyframes leaves the frames off by a share of that offset),
+  and the valid keyframes alone would not do: by the window's end the map
+  has culled most keyframes of the first lap.
 """
 
 from __future__ import annotations
@@ -40,6 +57,16 @@ def ate_share(est_pose7: np.ndarray, gt_pose7: np.ndarray) -> float:
     est, gt = ref.centres(est_pose7), ref.centres(gt_pose7)
     length = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
     return ref.sim3_ate(est, gt) / length if length > 0 else math.inf
+
+
+def loop_gap(loops, trajectory, truth_pose7: np.ndarray) -> float:
+    """``reference.loop_gap`` of the window's loops [(f0, f1)] on a
+    trajectory [(frame, T_cw pose7)] (the keyframes' poses, or the frames')
+    against the true poses of every frame of the stream ([F, 7] T_cw)."""
+    frames = [int(f) for f, _ in trajectory]
+    est = (dict(zip(frames, ref.centres(np.stack([p for _, p in trajectory]))))
+           if frames else {})
+    return ref.loop_gap(loops, est, ref.centres(truth_pose7))
 
 
 def desc_gap(samples, weights: dict, slam: dict, device, dtype="f32", program=True):

@@ -18,6 +18,7 @@ both.
 from __future__ import annotations
 
 import importlib
+import math
 import pickle
 
 import numpy as np
@@ -227,10 +228,10 @@ def centres(pose7: np.ndarray) -> np.ndarray:
     return -np.einsum("nji,nj->ni", R, pose7[:, 4:].astype(np.float64))
 
 
-def sim3_ate(est: np.ndarray, gt: np.ndarray) -> float:
-    """RMS distance between the ground-truth centres and the estimated ones
-    after the least-squares similarity that maps the estimate onto the
-    ground truth (Umeyama 1991)."""
+def _umeyama(est: np.ndarray, gt: np.ndarray):
+    """(s, R, mu_e, mu_g) of the least-squares similarity that maps the
+    estimated centres onto the ground truth, gt ~ s R (est - mu_e) + mu_g
+    (Umeyama 1991)."""
     mu_e, mu_g = est.mean(0), gt.mean(0)
     e, g = est - mu_e, gt - mu_g
     cov = g.T @ e / len(est)
@@ -241,5 +242,43 @@ def sim3_ate(est: np.ndarray, gt: np.ndarray) -> float:
     R = U @ D @ Vt
     var_e = (e ** 2).sum() / len(est)
     s = np.trace(np.diag(S) @ D) / var_e if var_e > 0 else 0.0
-    aligned = s * e @ R.T + mu_g
+    return s, R, mu_e, mu_g
+
+
+def sim3_ate(est: np.ndarray, gt: np.ndarray) -> float:
+    """RMS distance between the ground-truth centres and the estimated ones
+    after the least-squares similarity that maps the estimate onto the
+    ground truth."""
+    s, R, mu_e, mu_g = _umeyama(est, gt)
+    aligned = s * (est - mu_e) @ R.T + mu_g
     return float(np.sqrt(((aligned - gt) ** 2).sum(1).mean()))
+
+
+def loop_gap(loops, est: dict, gt: np.ndarray) -> float:
+    """The loops' closure error as a share of their laps.  ``est`` holds
+    the judged centres by frame ({frame: centre}: every keyframe's, or every
+    frame's), ``gt`` the true centre of every frame of the stream.  For each
+    loop (f0, f1), f0 the matched keyframe's frame and f1 the loop
+    keyframe's, the lap is the frames of ``est`` from f0 to f1; their centres
+    ``c`` are fitted onto the true ones ``g`` by a similarity (s, R), and the
+    gap is |s R (c[f1] - c[f0]) - (g[f1] - g[f0])| over the true path length
+    from f0 to f1.  The largest over the loops; inf where there is no loop,
+    where f0 or f1 has no centre, or where a lap holds fewer than three."""
+    if not loops:
+        return math.inf
+    g_all = np.asarray(gt, np.float64)
+    worst = 0.0
+    for f0, f1 in loops:
+        a, b = min(f0, f1), max(f0, f1)
+        frames = [f for f in sorted(est) if a <= f <= b]
+        if a not in est or b not in est or len(frames) < 3 or b >= len(g_all):
+            return math.inf
+        c = np.stack([np.asarray(est[f], np.float64) for f in frames])
+        g = g_all[frames]
+        length = float(np.linalg.norm(np.diff(g_all[a:b + 1], axis=0), axis=1).sum())
+        if not length > 0:
+            return math.inf
+        s, R, _, _ = _umeyama(c, g)
+        gap = float(np.linalg.norm(s * R @ (c[-1] - c[0]) - (g[-1] - g[0])))
+        worst = max(worst, gap / length)
+    return worst

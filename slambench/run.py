@@ -21,17 +21,21 @@ on a machine with an NVIDIA card.  A run:
 5. feeds frames closed-loop for ``--seconds``: each frame goes to
    ``track_monocular`` when the previous call returns; with ``--trace 1`` a
    slice in the middle of the window runs under ``torch.profiler``;
-6. calls ``finish()``, reads the peak memory, frees the System, holds what
-   the window produced against the plain references (``check.py``) and
-   prints the result as the last line of standard output.
+6. calls ``finish()``, reads the peak memory and the window's closed loops
+   (with ``loop_gap`` in the configuration's ``limits``, every keyframe's
+   pose too), frees the System, holds what the window produced against the
+   plain references (``check.py``) and prints the result as the last line
+   of standard output.
 
 Standard error carries the run's counts (calls, keyframes, valid feature
-slots, the card's name, power limit and clocks), then each number compared
-beside its limit as its last lines.  Each metric is read by
-``slambench/metrics/<name>.py``; a metric whose reader finds nothing to
-read is left out of the line.  Without a card, or with fewer cards than the
-cell asks for, the run exits 2 and prints no result; a module of JAX or of
-the JAX package in the process exits 3.
+slots, the window's loops, the card's name, power limit and clocks), then
+each number compared beside its limit as its last lines.  Each metric is
+read by ``slambench/metrics/<name>.py`` from the run's dict (spans, call
+times, the profiled slice, the window's loops as ``"loops"``); a metric
+whose reader finds nothing to read is left out of the line.  Without a
+card, or with fewer cards than the cell asks for, the run exits 2 and
+prints no result; a module of JAX or of the JAX package in the process
+exits 3.
 """
 
 from __future__ import annotations
@@ -215,11 +219,15 @@ class Slice:
 # One run
 # --------------------------------------------------------------------------- #
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str = "cuda",
-             slam_overrides=None, traffic_overrides=None, collect: bool = False) -> dict:
+             slam_overrides=None, traffic_overrides=None, collect: bool = False,
+             until_loop: bool = False) -> dict:
     """One run of ``workload``; returns {"line": the result's dict,
     "checks": {name: (value, limit)}} and, with ``collect``, what was
-    judged ("judged").  ``slam_overrides`` / ``traffic_overrides`` change
-    the configuration and the traffic (the tests' small CPU runs)."""
+    judged ("judged", with the window's loops, every keyframe's pose and the
+    truth, whatever the configuration's limits).  ``slam_overrides`` /
+    ``traffic_overrides`` change the configuration and the traffic, and
+    ``until_loop`` ends the window at the first frame after a loop closed in
+    it (the tests' small CPU runs)."""
     import torch
 
     import check
@@ -302,6 +310,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
             system.track_monocular(stream.frames[i], i)
             calls.append(time.perf_counter() - t)
             i += 1
+            if until_loop and any(f1 >= warmup for _, _, f1 in system.loop_closer.accepted_log):
+                break
         window_s = time.perf_counter() - t_win
         in_window[0] = False
         if prof is not None and prof.open:
@@ -332,14 +342,25 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
                             f.level.cpu().numpy(), f.desc.cpu().numpy(),
                             f.valid.cpu().numpy()))
         launches = [host_copy(r) for r in probe.since(warmup)]
-        n_loops = system.loop_closer.n_loops_closed if system.loop_closer is not None else 0
+        lc = system.loop_closer
+        n_loops = lc.n_loops_closed if lc is not None else 0
+        # the window's loops (f0, f1): the matched keyframe's frame and the
+        # loop keyframe's, the latter in the window
+        loops = [(int(store.kf_frame_id[cand]), int(f1))
+                 for _kf, cand, f1 in (lc.accepted_log if lc is not None else ())
+                 if f1 >= warmup]
+        # every keyframe the run made, culled ones too, at the poses the map
+        # holds: its record of each lap (check.py, loop_gap)
+        keyframes = ([(int(store.kf_frame_id[k]), store.kf_pose[k].copy())
+                      for k in range(store.n_kf)]
+                     if "loop_gap" in spec["limits"] or collect else None)
         profile = prof.summary() if prof is not None else None
         if prof is not None:
             spans, frames, window_s, calls = prof.outside(spans, frames, window_s, calls, warmup)
     finally:
         graphs._warm, graphs._capture = warm, capture
         probe.close()
-    del system, store, probe
+    del system, store, probe, lc
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
@@ -347,7 +368,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
     log(f"window: {fed} calls of track_monocular, {frames} of them outside a profiled slice, "
         f"in {window_s:.3f} s; "
         f"{len(kf_ids)} keyframes inserted; valid feature slots {valid_share:.4f}; "
-        f"{len(tracked)} of {fed} frames tracked; {n_loops} loops closed; "
+        f"{len(tracked)} of {fed} frames tracked; {n_loops} loops closed, "
+        f"{len(loops)} in the window (f0 -> f1: "
+        f"{', '.join(f'{a} -> {b}' for a, b in loops) or 'none'}); "
         f"{len(launches)} K1 launches judged, of shapes {sorted({l[0][0].shape[0] for l in launches})}"
         f" x {sorted({l[0][1].shape[0] for l in launches})}; "
         f"captures in the window: {len(captures)} {captures}")
@@ -367,6 +390,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
         "desc_gap": check.desc_gap(samples, weights, slam, dev) if samples else math.inf,
         "k1_gap": check.k1_gap(launches, dev) if launches else math.inf,
     }
+    if "loop_gap" in spec["limits"]:
+        values["loop_gap"] = check.loop_gap(loops, keyframes, stream.pose7)
     limits = spec["limits"]
     checks = {k: (values[k], limits[k]) for k in values}
     correct = all(math.isfinite(v) and v <= lim for v, lim in checks.values())
@@ -377,7 +402,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
         peaks = roofline.peaks_for(torch.cuda.get_device_name(dev))
     run = {"frames": frames, "window_s": window_s, "calls_s": calls, "spans": spans,
            "setup_s": setup_s, "n_features": cfg.n_features, "peaks": peaks,
-           "profile": profile}
+           "profile": profile, "loops": loops}
     metrics = {}
     for m in manifest["per_layer" if trace else "end_to_end"]:
         if "workloads" in m and workload not in m["workloads"]:
@@ -398,7 +423,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
     out = {"line": line, "checks": checks}
     if collect:
         out["judged"] = {"samples": samples, "launches": launches, "est": est, "gt": gt,
-                         "weights": weights, "slam": slam, "tracked": tracked}
+                         "weights": weights, "slam": slam, "tracked": tracked,
+                         "loops": loops, "keyframes": keyframes, "truth": stream.pose7}
     return out
 
 

@@ -6,6 +6,7 @@ run on the CPU, at a small configuration of the cell (``cpu_route.small``),
 with K1's wrapper on the searches' route (``cpu_route.kernel_route``).
 About a minute a run on two torch threads."""
 
+import math
 import traceback
 
 import pytest
@@ -31,6 +32,10 @@ def test_sound_run_is_correct(workload):
     out = small_run(workload)
     assert out["line"]["correct"], out["checks"]
     assert out["line"]["attempted"] > 0
+    # a configuration whose limits do not name loop_gap is judged on the
+    # three numbers alone
+    assert set(out["checks"]) == set(out["line"]["checks"]) == {"ate_share", "desc_gap",
+                                                                  "k1_gap"}
 
 
 @pytest.mark.parametrize("kind", cpu_route.FAULTS)
@@ -63,3 +68,21 @@ def test_funnel_warm_up_fails_where_the_program_lacks_its_hooks():
         system = types.SimpleNamespace(loop_closer=lc, store=None, tracker=tracker)
         with pytest.raises(RuntimeError, match="cannot reach"):
             mapping.warm_loop_funnel(system, print)
+
+
+def test_loop_limit_without_a_loop_is_not_correct(monkeypatch):
+    """A configuration whose limits name loop_gap is judged on it too: the
+    street closes no loop, so the run reads inf and is not correct."""
+    load = run.load_json
+
+    def with_loop_limit(*parts):
+        out = load(*parts)
+        if parts[:2] == ("slambench", "configs"):
+            out["limits"] = dict(out["limits"], loop_gap=0.01)
+        return out
+
+    monkeypatch.setattr(run, "load_json", with_loop_limit)
+    out = small_run("kitti.cruise")
+    assert set(out["checks"]) == {"ate_share", "desc_gap", "k1_gap", "loop_gap"}
+    assert out["checks"]["loop_gap"] == (math.inf, 0.01)
+    assert not out["line"]["correct"], out["checks"]
